@@ -1,0 +1,164 @@
+#!/usr/bin/env python3
+"""Profile the PyTorch port's main path on one CUDA device.
+
+    python3 scripts/profile_torch_slice.py [--chains 8192] [--iters 20] [--runs 7]
+
+Runs ``SVMSampler.fit_scan("SGLD", record="none")`` at the benchmark
+configuration (SVM, T=1000, N=1024, S=40, B=10, Poyiadjis O(N), systematic
+resampling) and prints:
+  - the card's ``nvidia-smi`` name and power limit;
+  - aggregate steps/s of ``--runs`` timed fits after one warm-up (each run,
+    then the median and the lower and upper quartile);
+  - one fit under ``torch.profiler``: the device's busy time, as the union
+    of its kernel, memcpy and memset intervals in the trace; the idle share
+    of the fit's span (the ``fit_scan`` annotation, which ends after a
+    synchronising read of the result); each kernel's share of the busy time;
+  - the peak device memory of the fits (``max_memory_allocated``);
+  - the device-memory bandwidth of a 2 GiB device-to-device copy (bytes read
+    plus written per second), and the rate at which the fused-window kernel
+    streams its proposal normals as a share of that copy rate.
+The trace is written to ``build/profile/torch_slice_trace.json``.
+"""
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
+
+N, S, B, T = 1024, 40, 10, 1000
+W = S + 2 * B
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def union_us(intervals):
+    """Total length of the union of ``(start, end)`` intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def copy_bandwidth(nbytes=2 ** 31, reps=10):
+    """Bytes read plus written per second by a device-to-device copy."""
+    src = torch.empty(nbytes // 4, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        dst.copy_(src)
+    end.record()
+    torch.cuda.synchronize()
+    return 2 * nbytes * reps / (start.elapsed_time(end) / 1e3)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--chains", type=int, default=8192)
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--runs", type=int, default=7)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("profile_torch_slice: no CUDA device is available")
+    from sgmcmc_tpu_torch.inference.samplers import SVMSampler
+    from sgmcmc_tpu_torch.models import svm
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ys, _ = svm.generate_data(gen, svm.from_scalars(0.9, 0.5, 1.0, device=dev),
+                              T)
+    sampler = SVMSampler(observations=ys, device="cuda", seed=2)
+    sampler.parameters = svm.from_scalars(0.5, 1.0, 2.0)
+    kw = dict(N=N, subsequence_length=S, buffer_length=B, pf="poyiadjis_N",
+              resampler="systematic")
+
+    def fit():
+        _, aux = sampler.fit_scan("SGLD", num_iters=args.iters, epsilon=0.1,
+                                  num_chains=args.chains, record="none",
+                                  return_aux=True, **kw)
+        return float(aux[:, -1].sum())          # synchronises
+
+    torch.cuda.reset_peak_memory_stats()
+    fit()
+    rates = []
+    for _ in range(args.runs):
+        t0 = time.perf_counter()
+        fit()
+        rates.append(args.chains * args.iters / (time.perf_counter() - t0))
+    q = statistics.quantiles(rates, n=4) if len(rates) > 1 else rates * 3
+    print("steps/s runs:", " ".join(f"{r:.1f}" for r in rates))
+    print(f"steps/s median {statistics.median(rates):.1f}, quartiles "
+          f"{q[0]:.1f} / {q[2]:.1f} ({card})")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("fit_scan"):
+            fit()
+    peak = torch.cuda.max_memory_allocated()
+    out_dir = ROOT / "build" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    trace_path = out_dir / "torch_slice_trace.json"
+    prof.export_chrome_trace(str(trace_path))
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    span = [e for e in events if e.get("cat") == "user_annotation"
+            and e.get("name") == "fit_scan"]
+    if len(span) != 1:
+        raise RuntimeError(f"{len(span)} fit_scan annotations in the trace")
+    t_lo = float(span[0]["ts"])
+    t_hi = t_lo + float(span[0]["dur"])
+    dev_ev = [e for e in events if e.get("cat") in DEVICE_CATS
+              and e.get("ph") == "X"]
+    if not dev_ev:
+        raise RuntimeError("no device activity in the trace")
+    ivals = [(max(float(e["ts"]), t_lo),
+              min(float(e["ts"]) + float(e["dur"]), t_hi)) for e in dev_ev]
+    busy = union_us([iv for iv in ivals if iv[1] > iv[0]])
+    wall = t_hi - t_lo
+    print(f"profiled fit: span {wall / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms (union of {len(dev_ev)} kernel/memcpy/memset "
+          f"intervals), idle share {1 - busy / wall:.4f} ({card})")
+    per_name = defaultdict(lambda: [0.0, 0])
+    for e in dev_ev:
+        per_name[e["name"]][0] += float(e["dur"])
+        per_name[e["name"]][1] += 1
+    print("device time by kernel (share of busy time):")
+    for name, (us, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {us / 1e3:9.3f} ms {us / busy:7.2%} {n:5d} calls  "
+              f"{name[:90]}")
+    fused = [(us, n) for name, (us, n) in per_name.items()
+             if "fused_window_kernel" in name]
+    print(f"peak device memory {peak / 2 ** 30:.3f} GiB")
+    bw = copy_bandwidth()
+    print(f"device-to-device copy: {bw / 1e9:.1f} GB/s read+written ({card})")
+    if fused:
+        us, n = fused[0]
+        stream = args.chains * W * N * 4 / (us / n / 1e6)
+        print(f"fused window: {us / n / 1e3:.3f} ms per call, normals "
+              f"streamed at {stream / 1e9:.1f} GB/s = {stream / bw:.2%} of "
+              f"the copy rate ({card})")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,264 @@
+"""Fused buffered particle-smoother window: CUDA kernel and plain version.
+
+Counterpart of ``sgmcmc_tpu/ops/pallas/fused_pf.py``.  The whole W-step
+window (weight normalisation and CDF, systematic resampling of state and
+statistics, proposal, reweighting, additive-statistic update and the
+log-likelihood) runs in one launch of the kernel in
+``csrc/fused_window.cu``, which replaces the TPU kernel
+``_fused_window_kernel``.  ``fused_window`` launches it for CUDA tensors
+and runs ``fused_window_reference``, the same function in plain PyTorch,
+for CPU tensors.
+
+The library is built with ``nvcc`` at first use from the sources in
+``csrc/`` into ``build/sgmcmc_tpu_torch/`` beside the package, keyed on a
+hash of the sources and flags, and bound with ``ctypes``.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Callable
+
+import torch
+
+from .resample import ancestors, cdf_parts
+
+_PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "sgmcmc_tpu_torch"
+_SOURCES = ("fused_window.cu", "svm_body.cuh")
+# model bodies with an entry point in the library (FusedModel.body)
+_BODIES = ("svm",)
+# --fmad=false: the model body rounds after every operation, as PyTorch's
+# elementwise operators do, so kernel and plain version pick the same
+# ancestors (see the note at the top of csrc/fused_window.cu).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
+              "-Xptxas", "-v")
+# Dynamic shared memory one block may use on Hopper.
+SMEM_LIMIT = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedModel:
+    """Model bundle of the fused window.
+
+    ``propose``, ``reweight`` and ``stat`` are the plain PyTorch body:
+    elementwise functions over lists of ``[C, N]`` tensors (one per state
+    dimension / normal / statistic) with parameters as a list of ``[C, 1]``
+    columns of ``pack_params(params) -> [C, P]``.  ``body`` names the CUDA
+    twin of the same body (``csrc/<body>_body.cuh``), whose entry point is
+    ``sgmcmc_fused_window_<body>``.
+    """
+    n_state: int
+    n_stat: int
+    n_param: int
+    pack_params: Callable
+    propose: Callable
+    reweight: Callable
+    stat: Callable
+    body: str
+    n_noise: int | None = None
+
+    @property
+    def noise_dims(self) -> int:
+        return self.n_state if self.n_noise is None else self.n_noise
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return str(path)
+
+
+def library_path() -> Path:
+    """Path of the shared library for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _SOURCES:
+        h.update((CSRC_DIR / name).read_bytes())
+    return BUILD_DIR / f"libfused_window_{h.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    so = library_path()
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        r = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC_DIR / "fused_window.cu")],
+            capture_output=True, text=True)
+        so.with_suffix(".log").write_text(r.stdout + r.stderr)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{r.stdout}{r.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for body in _BODIES:
+        fn = getattr(lib, f"sgmcmc_fused_window_{body}")
+        fn.argtypes = [P, P, P, P, P, P, P, I, I, I, ctypes.c_float, P]
+        fn.restype = I
+        smem = getattr(lib, f"sgmcmc_fused_window_{body}_smem")
+        smem.argtypes = [I, I]
+        smem.restype = ctypes.c_size_t
+    lib.sgmcmc_cuda_error_string.argtypes = [I]
+    lib.sgmcmc_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_inputs(model, pvec, x0, normals, ys, weights, xi):
+    C, W = ys.shape
+    D, Z, P = model.n_state, model.noise_dims, model.n_param
+    N = x0.shape[-1]
+    want = {"pvec": (C, P), "x0": (C, D, N), "normals": (C, W, Z, N),
+            "ys": (C, W), "weights": (C, W), "xi": (C, W)}
+    got = {"pvec": pvec, "x0": x0, "normals": normals, "ys": ys,
+           "weights": weights, "xi": xi}
+    for name, t in got.items():
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {want[name]}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != x0.device:
+            raise ValueError(f"{name} is on {t.device}, x0 on {x0.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if N < 1 or W < 1:
+        raise ValueError("the window needs N >= 1 particles and W >= 1 "
+                         "steps")
+
+
+def fused_window(model: FusedModel, pvec: torch.Tensor, x0: torch.Tensor,
+                 normals: torch.Tensor, ys: torch.Tensor,
+                 weights: torch.Tensor, xi: torch.Tensor,
+                 lambduh: float = 1.0) -> torch.Tensor:
+    """Run the fused window for a batch of chains: ``[C, H+1]``, the
+    weight-averaged statistic then the log-likelihood.
+
+    Inputs: ``pvec [C, P]``, ``x0 [C, D, N]``, ``normals [C, W, Z, N]``
+    (particle j in natural order), ``ys``, ``weights`` and the systematic
+    offsets ``xi``, each ``[C, W]``; all float32 and contiguous.  CUDA
+    tensors launch the kernel on the current stream (no synchronisation)
+    and count one in ``fused_window.launches``; CPU tensors run
+    :func:`fused_window_reference`.
+    """
+    _check_inputs(model, pvec, x0, normals, ys, weights, xi)
+    if x0.device.type == "cpu":
+        return fused_window_reference(model, pvec, x0, normals, ys, weights,
+                                      xi, lambduh)
+    if x0.device.type != "cuda":
+        raise ValueError(f"no fused window for device {x0.device}")
+    C, W = ys.shape
+    N = x0.shape[-1]
+    lib = load_library()
+    smem = getattr(lib, f"sgmcmc_fused_window_{model.body}_smem")(W, N)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"N={N}, W={W} needs {smem} bytes of shared memory per block; "
+            f"the card gives at most {SMEM_LIMIT}")
+    entry = getattr(lib, f"sgmcmc_fused_window_{model.body}")
+    out = torch.empty((C, model.n_stat + 1), dtype=torch.float32,
+                      device=x0.device)
+    # the library's runtime launches on the thread's current device
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = entry(pvec.data_ptr(), x0.data_ptr(), normals.data_ptr(),
+                   ys.data_ptr(), weights.data_ptr(), xi.data_ptr(),
+                   out.data_ptr(), C, W, N, float(lambduh), stream)
+    if rc != 0:
+        raise RuntimeError("fused window launch failed: "
+                           + lib.sgmcmc_cuda_error_string(rc).decode())
+    fused_window.launches += 1
+    return out
+
+
+fused_window.launches = 0
+
+
+def _weighted_mean(S, w, tot, ok, n_t):
+    """sum_j S[c, h, j] * p[c, j] with p = w / tot (uniform when
+    degenerate), accumulated in float64 as the kernel does."""
+    probs = torch.where(ok, w / tot.to(w.dtype), 1.0 / n_t)
+    return (S * probs[:, None, :]).double().sum(-1).to(w.dtype)
+
+
+def _ll_increment(m, tot, ok, log_n):
+    inc = m[:, 0] + torch.log(tot[:, 0].to(m.dtype)) - log_n
+    return torch.where(ok[:, 0], inc, torch.full_like(inc, -float("inf")))
+
+
+def fused_window_reference(model: FusedModel, pvec, x0, normals, ys,
+                           weights, xi, lambduh: float = 1.0):
+    """Plain-PyTorch version of the fused window kernel (same inputs and
+    output as :func:`fused_window`), step by step in the kernel's order:
+    float64 prefix sum (``torch.cumsum``), ancestors by
+    ``torch.searchsorted(right=True)``, gathers by ``torch.gather``."""
+    C, D, N = x0.shape
+    W = ys.shape[1]
+    H = model.n_stat
+    dt, dev = x0.dtype, x0.device
+    pv = [pvec[:, i:i + 1] for i in range(model.n_param)]
+    V = torch.cat([x0, torch.zeros((C, H, N), dtype=dt, device=dev)], 1)
+    logw = torch.zeros((C, N), dtype=dt, device=dev)
+    ll = torch.zeros((C,), dtype=dt, device=dev)
+    n_t = torch.full((), float(N), dtype=dt, device=dev)
+    log_n = torch.log(n_t)
+    j = torch.arange(N, dtype=dt, device=dev)
+    lam = torch.full((), lambduh, dtype=dt, device=dev)
+    om = 1.0 - lam
+    for t in range(W):
+        cdf, m, w, tot, ok = cdf_parts(logw)
+        if t > 0:
+            ll = ll + weights[:, t - 1] * _ll_increment(m, tot, ok, log_n)
+        if lambduh != 1.0:
+            S_bar = _weighted_mean(V[:, D:], w, tot, ok, n_t)     # [C, H]
+        idx = ancestors((j + xi[:, t:t + 1]) / n_t, cdf)         # [C, N]
+        Vr = torch.gather(V, 2, idx[:, None, :].expand(-1, D + H, -1))
+        xr = list(Vr[:, :D].unbind(1))
+        z = list(normals[:, t].unbind(1))
+        y_t = ys[:, t:t + 1]
+        x_new = model.propose(pv, z, xr, y_t)
+        logw = model.reweight(pv, xr, x_new, y_t)
+        h = torch.stack(model.stat(pv, xr, x_new, y_t), 1)      # [C, H, N]
+        w_t = weights[:, t, None, None]
+        if lambduh == 1.0:
+            s_new = Vr[:, D:] + w_t * h
+        else:
+            s_new = lam * Vr[:, D:] + om * S_bar[..., None] + w_t * h
+        V = torch.cat([torch.stack(x_new, 1), s_new], 1)
+    _, m, w, tot, ok = cdf_parts(logw)
+    ll = ll + weights[:, W - 1] * _ll_increment(m, tot, ok, log_n)
+    stat = _weighted_mean(V[:, D:], w, tot, ok, n_t)
+    return torch.cat([stat, ll[:, None]], 1)
+
+
+def fused_pf_score(model: FusedModel, params, window: torch.Tensor,
+                   step_weights: torch.Tensor, z0: torch.Tensor,
+                   normals: torch.Tensor, xi: torch.Tensor,
+                   prior_mean: torch.Tensor, prior_var: torch.Tensor,
+                   lambduh: float = 1.0):
+    """Chain-batched fused buffered-PF score: ``(mean_stat [C, H],
+    loglik [C])`` for windows ``[C, W]`` with the draws ``z0 [C, Z, N]``,
+    ``normals [C, W, Z, N]`` and ``xi [C, W]``; the initial state is
+    ``prior_mean + sqrt(prior_var) * z0`` per chain."""
+    D, H = model.n_state, model.n_stat
+    x0 = (prior_mean[:, None, None]
+          + torch.sqrt(prior_var)[:, None, None] * z0[:, :D]).contiguous()
+    out = fused_window(model, model.pack_params(params).contiguous(), x0,
+                       normals.contiguous(), window.contiguous(),
+                       step_weights.contiguous(), xi.contiguous(), lambduh)
+    return out[:, :H], out[:, H]

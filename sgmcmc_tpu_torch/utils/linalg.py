@@ -1,0 +1,29 @@
+"""Linear-algebra helpers (counterpart of ``sgmcmc_tpu/utils/linalg.py``)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def tril_dim(n: int) -> int:
+    """Number of entries in the lower triangle of an (n, n) matrix."""
+    return (n * (n + 1)) // 2
+
+
+def tril_n_from_dim(d: int) -> int:
+    """Inverse of :func:`tril_dim`: matrix size n with n(n+1)/2 == d."""
+    n = int((np.sqrt(8 * d + 1) - 1) / 2)
+    if tril_dim(n) != d:
+        raise ValueError(f"{d} is not a triangular number")
+    return n
+
+
+def tril_vector_to_mat(vec: torch.Tensor) -> torch.Tensor:
+    """Expand a packed lower-triangle vector [..., d] into [..., n, n].
+
+    Row-major packing over the lower triangle, as in the JAX package."""
+    n = tril_n_from_dim(vec.shape[-1])
+    rows, cols = np.tril_indices(n)
+    mat = vec.new_zeros(vec.shape[:-1] + (n, n))
+    mat[..., torch.as_tensor(rows), torch.as_tensor(cols)] = vec
+    return mat
