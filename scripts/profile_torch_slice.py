@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's main path on one CUDA device.
 
-    python3 scripts/profile_torch_slice.py [--chains 8192] [--iters 20] [--runs 7]
+    python3 scripts/profile_torch_slice.py [--chains 8192] [--iters 20]
+        [--runs 7] [--resampler systematic|multinomial|stratified]
+        [--particles 1024]
 
 Runs ``SVMSampler.fit_scan("SGLD", record="none")`` at the benchmark
 configuration (SVM, T=1000, N=1024, S=40, B=10, Poyiadjis O(N), systematic
-resampling) and prints:
+resampling: the fused-window path) or, with ``--resampler multinomial``,
+the JAX package's default resampler (the unfused path, one resample-apply
+launch per window step) and prints:
   - the card's ``nvidia-smi`` name and power limit;
   - aggregate steps/s of ``--runs`` timed fits after one warm-up (each run,
     then the median and the lower and upper quartile);
@@ -34,7 +38,7 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
-N, S, B, T = 1024, 40, 10, 1000
+S, B, T = 40, 10, 1000
 W = S + 2 * B
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -74,7 +78,11 @@ def main():
     ap.add_argument("--chains", type=int, default=8192)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--runs", type=int, default=7)
+    ap.add_argument("--resampler", default="systematic",
+                    choices=("systematic", "multinomial", "stratified"))
+    ap.add_argument("--particles", type=int, default=1024)
     args = ap.parse_args()
+    N = args.particles
     if not torch.cuda.is_available():
         sys.exit("profile_torch_slice: no CUDA device is available")
     from sgmcmc_tpu_torch.inference.samplers import SVMSampler
@@ -92,7 +100,9 @@ def main():
     sampler = SVMSampler(observations=ys, device="cuda", seed=2)
     sampler.parameters = svm.from_scalars(0.5, 1.0, 2.0)
     kw = dict(N=N, subsequence_length=S, buffer_length=B, pf="poyiadjis_N",
-              resampler="systematic")
+              resampler=args.resampler)
+    print(f"config: {args.chains} chains, N={N}, S={S}, B={B}, T={T}, "
+          f"Poyiadjis O(N), {args.resampler} resampling")
 
     def fit():
         _, aux = sampler.fit_scan("SGLD", num_iters=args.iters, epsilon=0.1,

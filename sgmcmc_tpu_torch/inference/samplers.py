@@ -2,8 +2,9 @@
 of ``sgmcmc_tpu/inference/samplers.py``).
 
 A :class:`Sampler` holds the model, the observations, the prior, the
-parameters, a seeded ``torch.Generator`` and an explicit ``device``.
-``device="cuda"`` without a card raises; it never falls back to the CPU.
+parameters, a seeded ``torch.Generator`` and its ``device``: the card
+unless the caller passes ``device="cpu"``.  Without a card the default
+raises; it never falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -21,11 +22,12 @@ class Sampler:
     """Stateful wrapper over the chain-batched SG-MCMC core."""
 
     def __init__(self, model: ModelAPI | str, observations=None, prior=None,
-                 parameters=None, seed: int = 0, device="cpu"):
+                 parameters=None, seed: int = 0, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' was requested but no CUDA "
-                               "device is available")
+            raise RuntimeError(f"device={str(device)!r} needs a CUDA "
+                               "card but no CUDA device is available; pass "
+                               "device='cpu' to run on the CPU")
         self.model = get_model(model) if isinstance(model, str) else model
         self.observations = None
         if observations is not None:
@@ -66,9 +68,11 @@ class Sampler:
             minibatch_size=kwargs.get("minibatch_size", 1),
             smoother=kwargs.get("pf", kwargs.get("smoother", "poyiadjis_N")),
             resampler=kwargs.get("resampler", "multinomial"),
+            resample_mode=kwargs.get("resample_mode", "auto"),
             lambduh=kwargs.get("lambduh", 0.95),
             partition_style=kwargs.get("partition_style", "uniform"),
             ess_threshold=kwargs.get("ess_threshold", None),
+            bw_chunk=kwargs.get("bw_chunk", None),
         )
 
     def _grad_fn(self, **kwargs):

@@ -5,7 +5,9 @@ functions act on C chains at once (parameters with a leading chain axis)
 and draw from an explicit ``torch.Generator``; the iteration loop is host
 Python.  For CUDA tensors the score runs the whole window in the fused
 CUDA kernel when the smoother is ``poyiadjis_N`` or ``nemeth`` with
-systematic resampling; on the CPU it runs the plain ``run_buffered_pf``.
+systematic resampling and no ESS gate; every other configuration, and
+every configuration on the CPU, runs ``run_buffered_pf``, whose window
+steps launch the resample-apply kernel for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -30,12 +32,19 @@ class PFScoreConfig:
     subsequence_length: int = -1        # -1: full sequence
     buffer_length: int = 0
     minibatch_size: int = 1
-    smoother: str = "poyiadjis_N"       # poyiadjis_N | nemeth
-    resampler: str = "multinomial"      # only systematic is ported
+    # nemeth | poyiadjis_N | poyiadjis_N2 | filter
+    smoother: str = "poyiadjis_N"
+    resampler: str = "multinomial"      # multinomial|systematic|stratified
+    # the JAX package's mode names; all select identically (one kernel)
+    resample_mode: str = "gather"
     lambduh: float = 0.95
     partition_style: str = "uniform"
-    # ESS-adaptive resampling (not ported yet: must stay None)
+    # ESS-adaptive resampling: resample only when ESS < ess_threshold * N.
+    # None resamples every step.
     ess_threshold: float | None = None
+    # row-block size of the poyiadjis_N2 backward weights (None: dense up
+    # to N=8192)
+    bw_chunk: int | None = None
 
 
 def _fused_eligible(config: PFScoreConfig, fused_model) -> bool:
@@ -52,7 +61,8 @@ class WindowDraws(NamedTuple):
     start: torch.Tensor     # [R] int64 subsequence starts
     z0: torch.Tensor        # [R, Z, N] initial-state normals
     normals: torch.Tensor   # [R, W, Z, N] proposal normals
-    xi: torch.Tensor        # [R, W] systematic offsets in [0, 1)
+    # resampling uniforms in [0, 1): [R, W] systematic, else [R, W, N]
+    u: torch.Tensor
 
 
 class PFScore(nn.Module):
@@ -93,8 +103,9 @@ class PFScore(nn.Module):
         z0 = torch.randn((R, Z, N), generator=generator, device=device)
         normals = torch.randn((R, W, Z, N), generator=generator,
                               device=device)
-        xi = torch.rand((R, W), generator=generator, device=device)
-        return WindowDraws(start, z0, normals, xi)
+        u_shape = (R, W) if cfg.resampler == "systematic" else (R, W, N)
+        u = torch.rand(u_shape, generator=generator, device=device)
+        return WindowDraws(start, z0, normals, u)
 
     def forward(self, generator, params, observations: torch.Tensor,
                 draws: WindowDraws | None = None):
@@ -125,15 +136,16 @@ class PFScore(nn.Module):
         if dev.type == "cuda" and _fused_eligible(cfg, self.fused_model):
             stat, ll = fused_pf_score(
                 self.fused_model, rows, window[..., 0], step_w, draws.z0,
-                draws.normals, draws.xi, pm, pv, self.fused_lambduh)
+                draws.normals, draws.u, pm, pv, self.fused_lambduh)
         else:
             out = run_buffered_pf(
                 self.kernel, self.stat_fn, rows, window, z0=draws.z0,
-                normals=draws.normals, xi=draws.xi,
+                normals=draws.normals, u=draws.u,
                 statistic_dim=self.statistic_dim, smoother=cfg.smoother,
                 step_weights=step_w, in_window=in_win, prior_mean=pm,
                 prior_var=pv, resampler=cfg.resampler,
-                lambduh=cfg.lambduh, ess_threshold=cfg.ess_threshold)
+                resample_mode=cfg.resample_mode, lambduh=cfg.lambduh,
+                ess_threshold=cfg.ess_threshold, bw_chunk=cfg.bw_chunk)
             stat, ll = out.mean_statistic, out.loglikelihood
         stat = stat.reshape(C, M, -1).mean(1)
         return self.unpack(stat), ll.reshape(C, M).mean(1)

@@ -19,6 +19,8 @@ from typing import Any, Callable
 #   sample_x0(params, z [C, N, D], prior_mean [C], prior_var [C]) -> [C, N, D]
 #   propose(params, z [C, N, Z], x_t [C, N, D], y_next [C, m]) -> [C, N, D]
 #   reweight(params, x_t [C, N, D], x_next [C, N, D], y_next [C, m]) -> [C, N]
+#   prior_log_density(params, x_t [C, M, D], x_next [C, M, D]) -> [C, M]
+#   prior_log_density_max(params) -> [C]
 #
 # StatisticFn (additive statistics h_t):
 #   stat_fn(params, x_t [C, N, D], x_next [C, N, D], y_next [C, m], t)
@@ -27,10 +29,14 @@ from typing import Any, Callable
 
 @dataclasses.dataclass(frozen=True)
 class ParticleKernel:
-    """Bootstrap particle kernel as a bundle of batched pure functions."""
+    """Bootstrap particle kernel as a bundle of batched pure functions;
+    the transition density ``prior_log_density`` feeds the backward
+    weights of the O(N^2) smoother."""
     sample_x0: Callable
     propose: Callable
     reweight: Callable
+    prior_log_density: Callable
+    prior_log_density_max: Callable
     state_dim: int = 1
     # standard normals consumed per particle and step
     noise_dim: int = 1

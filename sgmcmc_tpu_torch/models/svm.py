@@ -5,10 +5,10 @@ x_t = A x_{t-1} + N(0, Q),   y_t ~ N(0, exp(x_t) * R)
 Counterpart of the parts of ``sgmcmc_tpu/models/svm.py`` that buffered-PF
 SGLD runs: parameters in the same coordinates (A, packed Cholesky of the
 precisions LQinv_vec / LRinv_vec) with a leading chain axis, the bootstrap
-kernel, the Fisher-identity statistic, the prior and its partial-prior
-gradient, the projection, and the fused-window body (plain PyTorch here,
-CUDA in ``csrc/svm_body.cuh``).  The Laplace / EP proposals and the
-predict surface are not ported yet.
+kernel with its transition density, the Fisher-identity statistic, the
+prior and its partial-prior gradient, the projection, and the fused-window
+body (plain PyTorch here, CUDA in ``csrc/svm_body.cuh``).  The Laplace /
+EP proposals and the predict surface are not ported yet.
 """
 from __future__ import annotations
 
@@ -128,8 +128,22 @@ def _reweight(params: SVMParams, x_t, x_next, y_next):
             - 0.5 * x)
 
 
+def _prior_log_density(params: SVMParams, x_t, x_next):
+    """log q(x_next | x_t) [C, M] for x_t, x_next [C, M, 1]."""
+    diff = x_next[..., 0] - params.a[:, None] * x_t[..., 0]
+    return (-0.5 * diff * diff * params.qinv[:, None]
+            - 0.5 * _LOG_2PI + torch.log(torch.abs(params.lqinv))[:, None])
+
+
+def _prior_log_density_max(params: SVMParams):
+    return -0.5 * _LOG_2PI + torch.log(torch.abs(params.lqinv))
+
+
 KERNEL = ParticleKernel(sample_x0=_sample_x0, propose=_propose,
-                        reweight=_reweight, state_dim=1, noise_dim=1)
+                        reweight=_reweight,
+                        prior_log_density=_prior_log_density,
+                        prior_log_density_max=_prior_log_density_max,
+                        state_dim=1, noise_dim=1)
 
 
 def get_kernel(name: str | None = None) -> ParticleKernel:

@@ -1,10 +1,13 @@
 """Buffered particle smoother over one window, as a plain PyTorch loop.
 
-Counterpart of ``sgmcmc_tpu/ops/buffered.py``.  This is the port's plain
-path and its source of truth on the CPU; the CUDA fused kernel
-(``ops/cuda/fused_pf.py``) computes the same window in one launch.
-Randomness is an input, in the fused kernel's layout: ``z0 [C, Z, N]``,
-``normals [C, W, Z, N]`` and the systematic offsets ``xi [C, W]``.
+Counterpart of ``sgmcmc_tpu/ops/buffered.py``: every smoother of
+``ops/smoothers.py``, one resample-apply per window step (the CUDA kernel
+of ``ops/cuda/resample.py`` for CUDA tensors).  For systematic resampling
+the fused kernel (``ops/cuda/fused_pf.py``) computes the same window in
+one launch.  Randomness is an input, in the fused kernel's layout:
+``z0 [C, Z, N]``, ``normals [C, W, Z, N]`` and the resampling uniforms
+``u``, ``[C, W]`` for systematic and ``[C, W, N]`` for multinomial and
+stratified resampling.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from .smoothers import PFCarry, PFStepInput, make_smoother_step
 
 
 class PFOutput(NamedTuple):
-    statistics: torch.Tensor      # [C, N, H]
+    statistics: torch.Tensor      # [C, N, H] (smoothers) / [C, H] (filter)
     log_weights: torch.Tensor     # [C, N]
     particles: torch.Tensor       # [C, N, D]
     loglikelihood: torch.Tensor   # [C]
@@ -28,6 +31,8 @@ class PFOutput(NamedTuple):
 def average_statistic(statistics: torch.Tensor,
                       log_weights: torch.Tensor) -> torch.Tensor:
     """Weight-averaged final statistic [C, H]."""
+    if statistics.dim() == 2:
+        return statistics
     probs = normalize_log_weights(log_weights)
     return (statistics * probs[..., None]).sum(1)
 
@@ -40,16 +45,19 @@ def run_buffered_pf(
         *,
         z0: torch.Tensor,                # [C, Z, N] initial-state normals
         normals: torch.Tensor,           # [C, W, Z, N] proposal normals
-        xi: torch.Tensor,                # [C, W] systematic offsets
+        u: torch.Tensor,                 # [C, W] or [C, W, N] uniforms
         statistic_dim: int,
         smoother: str = "poyiadjis_N",
         step_weights: torch.Tensor | None = None,   # [C, W]
         in_window: torch.Tensor | None = None,      # [C, W] {0., 1.}
         prior_mean=0.0,                  # [C] or scalar
         prior_var=1.0,                   # [C] or scalar
-        resampler: str = "systematic",
+        resampler: str = "multinomial",
+        resample_mode: str = "auto",
         lambduh: float = 0.95,
+        logsumexp_mode: bool = False,
         ess_threshold: float | None = None,
+        bw_chunk: int | None = None,
         elementwise: bool = False,
         save_all: bool = False,
         fixed_lag: int | None = None,
@@ -71,19 +79,22 @@ def run_buffered_pf(
     if in_window is None:
         in_window = (step_weights > 0).to(dtype)
     step = make_smoother_step(smoother, kernel, stat_fn, resampler,
-                              lambduh=lambduh, ess_threshold=ess_threshold)
+                              lambduh=lambduh, logsumexp_mode=logsumexp_mode,
+                              resample_mode=resample_mode,
+                              ess_threshold=ess_threshold, bw_chunk=bw_chunk)
     D = kernel.state_dim
     N = z0.shape[-1]
     pm = torch.as_tensor(prior_mean, dtype=dtype, device=dev).reshape(-1)
     pv = torch.as_tensor(prior_var, dtype=dtype, device=dev).reshape(-1)
     x0 = kernel.sample_x0(params, z0[:, :D].transpose(1, 2), pm, pv)
+    stats_shape = ((C, statistic_dim) if smoother == "filter"
+                   else (C, N, statistic_dim))
     carry = PFCarry(x0, torch.zeros((C, N), dtype=dtype, device=dev),
-                    torch.zeros((C, N, statistic_dim), dtype=dtype,
-                                device=dev),
+                    torch.zeros(stats_shape, dtype=dtype, device=dev),
                     torch.zeros((C,), dtype=dtype, device=dev))
     for t in range(W):
         carry = step(params, carry, PFStepInput(
-            z=normals[:, t].transpose(1, 2), u=xi[:, t],
+            z=normals[:, t].transpose(1, 2), u=u[:, t],
             y=observations[:, t], weight=step_weights[:, t],
             in_window=in_window[:, t], t=t))
     return PFOutput(statistics=carry.statistics,

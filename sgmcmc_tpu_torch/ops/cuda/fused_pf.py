@@ -9,40 +9,23 @@ log-likelihood) runs in one launch of the kernel in
 and runs ``fused_window_reference``, the same function in plain PyTorch,
 for CPU tensors.
 
-The library is built with ``nvcc`` at first use from the sources in
-``csrc/`` into ``build/sgmcmc_tpu_torch/`` beside the package, keyed on a
-hash of the sources and flags, and bound with ``ctypes``.
+The kernel library is built at first use by ``ops/cuda/build.py`` and
+bound with ``ctypes``.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Callable
 
 import torch
 
+from .build import SMEM_LIMIT, check_launch, load_library
 from .resample import ancestors, cdf_parts
 
-_PKG_DIR = Path(__file__).resolve().parents[2]
-CSRC_DIR = _PKG_DIR / "csrc"
-BUILD_DIR = _PKG_DIR.parent / "build" / "sgmcmc_tpu_torch"
-_SOURCES = ("fused_window.cu", "svm_body.cuh")
 # model bodies with an entry point in the library (FusedModel.body)
 _BODIES = ("svm",)
-# --fmad=false: the model body rounds after every operation, as PyTorch's
-# elementwise operators do, so kernel and plain version pick the same
-# ancestors (see the note at the top of csrc/fused_window.cu).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v")
-# Dynamic shared memory one block may use on Hopper.
-SMEM_LIMIT = 232448
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,41 +54,10 @@ class FusedModel:
         return self.n_state if self.n_noise is None else self.n_noise
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
-    return str(path)
-
-
-def library_path() -> Path:
-    """Path of the shared library for the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update((CSRC_DIR / name).read_bytes())
-    return BUILD_DIR / f"libfused_window_{h.hexdigest()[:16]}.so"
-
-
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        r = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-             str(CSRC_DIR / "fused_window.cu")],
-            capture_output=True, text=True)
-        so.with_suffix(".log").write_text(r.stdout + r.stderr)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{r.stdout}{r.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+def _library() -> ctypes.CDLL:
+    """The kernel library with the fused-window entry points bound."""
+    lib = load_library()
     P, I = ctypes.c_void_p, ctypes.c_int
     for body in _BODIES:
         fn = getattr(lib, f"sgmcmc_fused_window_{body}")
@@ -114,8 +66,6 @@ def load_library() -> ctypes.CDLL:
         smem = getattr(lib, f"sgmcmc_fused_window_{body}_smem")
         smem.argtypes = [I, I]
         smem.restype = ctypes.c_size_t
-    lib.sgmcmc_cuda_error_string.argtypes = [I]
-    lib.sgmcmc_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -164,7 +114,7 @@ def fused_window(model: FusedModel, pvec: torch.Tensor, x0: torch.Tensor,
         raise ValueError(f"no fused window for device {x0.device}")
     C, W = ys.shape
     N = x0.shape[-1]
-    lib = load_library()
+    lib = _library()
     smem = getattr(lib, f"sgmcmc_fused_window_{model.body}_smem")(W, N)
     if smem > SMEM_LIMIT:
         raise ValueError(
@@ -179,9 +129,7 @@ def fused_window(model: FusedModel, pvec: torch.Tensor, x0: torch.Tensor,
         rc = entry(pvec.data_ptr(), x0.data_ptr(), normals.data_ptr(),
                    ys.data_ptr(), weights.data_ptr(), xi.data_ptr(),
                    out.data_ptr(), C, W, N, float(lambduh), stream)
-    if rc != 0:
-        raise RuntimeError("fused window launch failed: "
-                           + lib.sgmcmc_cuda_error_string(rc).decode())
+    check_launch(rc, "fused window")
     fused_window.launches += 1
     return out
 

@@ -1,9 +1,11 @@
-"""Host side of resampling: CDF, positions, and the index-based apply.
+"""Resampling on the device: CDF, positions and the resample-apply kernel.
 
-Counterpart of the plain half of ``sgmcmc_tpu/ops/pallas/resample.py``
-(``weights_cdf``, ``resample_positions``, ``resample_apply_gather``), over
-chain-batched ``[C, N]`` weights.  The TPU resample-apply kernels of that
-file are not ported yet (see ROADMAP.md).
+Counterpart of ``sgmcmc_tpu/ops/pallas/resample.py`` over chain-batched
+``[C, N]`` weights.  ``resample_apply`` launches the hand-written kernel of
+``csrc/resample_apply.cu`` for CUDA tensors; it replaces the TPU kernels
+``_resample2_kernel`` (K2a), ``_resample2_batched_kernel`` (K2b) and
+``_resample_kernel`` (K3), which compute the same function.  For CPU
+tensors it runs ``resample_apply_reference``, the plain PyTorch version.
 
 One ancestor rule holds everywhere in the port:
 ``idx_i = #{j : cdf_j <= pos_i}`` (``searchsorted(side="right")``),
@@ -16,7 +18,24 @@ choose the same ancestors.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
+
+from .build import check_launch, load_library
+
+# The JAX package's resample_mode names.  Its docstring states that all
+# modes select identically; they differ only in how a TPU computes the
+# selection, so every one of them runs `resample_apply` here.
+RESAMPLE_MODES = ("auto", "gather", "pallas", "pallas2", "xla", "xla2")
+# positions per block of csrc/resample_apply.cu (kTile)
+_TILE = 1024
+
+
+def check_mode(mode: str) -> None:
+    if mode not in RESAMPLE_MODES:
+        raise ValueError(f"Unrecognized resample mode '{mode}'")
 
 
 def cdf_parts(log_weights: torch.Tensor):
@@ -67,10 +86,99 @@ def ancestors(pos: torch.Tensor, cdf: torch.Tensor) -> torch.Tensor:
     return idx.clamp_(max=cdf.shape[-1] - 1)
 
 
-def resample_apply_gather(pos: torch.Tensor, cdf: torch.Tensor,
-                          vals: torch.Tensor) -> torch.Tensor:
-    """Index-based resample-apply: ``out[c, i] = vals[c, idx(c, i)]`` for
-    ``vals [C, N, K]``."""
+def resample_apply_reference(pos: torch.Tensor, cdf: torch.Tensor,
+                             vals: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel: ``out[c, i] = vals[c, idx(c, i)]`` for
+    ``vals [C, N, K]``, by ``torch.searchsorted`` and ``torch.gather``."""
     idx = ancestors(pos, cdf)
     return torch.gather(vals, 1, idx[..., None].expand(-1, -1,
                                                        vals.shape[-1]))
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The kernel library with the resample-apply entry points bound."""
+    lib = load_library()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.sgmcmc_resample_apply.argtypes = [P, P, P, P, I, I, I, I, P]
+    lib.sgmcmc_resample_apply.restype = I
+    lib.sgmcmc_resample_apply_max_shared_n.argtypes = []
+    lib.sgmcmc_resample_apply_max_shared_n.restype = I
+    return lib
+
+
+def max_shared_n() -> int:
+    """Largest N whose CDF the kernel keeps in shared memory; beyond it the
+    kernel searches the CDF in device memory."""
+    return _library().sgmcmc_resample_apply_max_shared_n()
+
+
+def _check_inputs(pos, cdf, vals):
+    if vals.dim() != 3 or pos.dim() != 2 or cdf.dim() != 2:
+        raise ValueError(
+            f"expected pos [C, n], cdf [C, N], vals [C, N, K]; got "
+            f"{tuple(pos.shape)}, {tuple(cdf.shape)}, {tuple(vals.shape)}")
+    C, N, K = vals.shape
+    if tuple(cdf.shape) != (C, N) or pos.shape[0] != C:
+        raise ValueError(
+            f"pos {tuple(pos.shape)} and cdf {tuple(cdf.shape)} do not "
+            f"match vals {tuple(vals.shape)}")
+    if min(C, N, K, pos.shape[1]) < 1:
+        raise ValueError("resample-apply needs C, n, N, K >= 1")
+    for name, t in (("pos", pos), ("cdf", cdf), ("vals", vals)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != vals.device:
+            raise ValueError(f"{name} is on {t.device}, vals on "
+                             f"{vals.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def resample_apply(pos: torch.Tensor, cdf: torch.Tensor,
+                   vals: torch.Tensor) -> torch.Tensor:
+    """Resample rows: ``out[c, i, :] = vals[c, idx(c, i), :]`` with
+    ``idx(c, i) = min(#{j : cdf[c, j] <= pos[c, i]}, N-1)``.
+
+    ``pos [C, n]``, ``cdf [C, N]`` (non-decreasing), ``vals [C, N, K]``,
+    all float32 and contiguous, on one device; returns ``[C, n, K]``.
+    CUDA tensors launch the kernel on the current stream (no
+    synchronisation) and count one in ``resample_apply.launches``; CPU
+    tensors run :func:`resample_apply_reference`.
+    """
+    _check_inputs(pos, cdf, vals)
+    if vals.device.type == "cpu":
+        return resample_apply_reference(pos, cdf, vals)
+    if vals.device.type != "cuda":
+        raise ValueError(f"no resample-apply for device {vals.device}")
+    C, N, K = vals.shape
+    n = pos.shape[1]
+    if C * -(-n // _TILE) >= 2 ** 31:
+        raise ValueError(f"C={C}, n={n} needs more than 2^31 - 1 blocks")
+    lib = _library()
+    out = torch.empty((C, n, K), dtype=torch.float32, device=vals.device)
+    # the library's runtime launches on the thread's current device
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.sgmcmc_resample_apply(pos.data_ptr(), cdf.data_ptr(),
+                                       vals.data_ptr(), out.data_ptr(),
+                                       C, n, N, K, stream)
+    check_launch(rc, "resample-apply")
+    resample_apply.launches += 1
+    return out
+
+
+resample_apply.launches = 0
+
+
+def resample_rows(u: torch.Tensor, log_weights: torch.Tensor,
+                  vals: torch.Tensor, scheme: str,
+                  mode: str = "auto") -> torch.Tensor:
+    """Resample rows of ``vals [C, N, K]`` by ``log_weights [C, N]`` at the
+    positions of ``scheme`` made from the uniforms ``u`` (see
+    :func:`resample_positions`): the counterpart of the JAX package's
+    ``resample_apply(key, log_weights, vals, scheme, mode)``."""
+    check_mode(mode)
+    cdf = weights_cdf(log_weights)
+    pos = resample_positions(scheme, u, log_weights.shape[-1])
+    return resample_apply(pos.contiguous(), cdf, vals.contiguous())

@@ -107,10 +107,10 @@ def port_paths(pvec, x0, normals, ys, weights, xi, lambduh, smoother):
     # x0 = 0 + sqrt(1) * x0 exactly: both paths start from the same x0
     out = buffered.run_buffered_pf(
         svm.KERNEL, svm.grad_statistic, params, t(ys)[..., None],
-        z0=t(x0), normals=t(normals), xi=t(xi), statistic_dim=3,
+        z0=t(x0), normals=t(normals), u=t(xi), statistic_dim=3,
         smoother=smoother, step_weights=w, in_window=(w > 0).float(),
         prior_mean=torch.zeros(len(pvec)), prior_var=torch.ones(len(pvec)),
-        lambduh=lambduh)
+        resampler="systematic", lambduh=lambduh)
     plain = torch.cat([out.mean_statistic, out.loglikelihood[:, None]],
                       1).numpy()
     return fused, plain

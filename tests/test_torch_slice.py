@@ -154,7 +154,7 @@ def test_score_mean_matches_jax_gather_path():
 
 def test_fit_scan_sgld_on_cpu():
     ys = jax_data(40, seed=2)
-    s = SVMSampler(observations=ys, seed=0)
+    s = SVMSampler(observations=ys, seed=0, device="cpu")
     s.parameters = svm.from_scalars(0.5, 1.0, 2.0)
     trace, aux = s.fit_scan(
         "SGLD", num_iters=3, epsilon=0.1, num_chains=4, record="all",

@@ -169,7 +169,7 @@ def test_resampling_host_side_matches_jax():
     vals = rng.standard_normal((C, N, 4)).astype(np.float32)
     cdf = resample.weights_cdf(torch.from_numpy(lw))
     pos = resample.resample_positions("systematic", torch.from_numpy(u), N)
-    out = resample.resample_apply_gather(pos, cdf, torch.from_numpy(vals))
+    out = resample.resample_apply(pos, cdf, torch.from_numpy(vals))
     anc = resampling.systematic_resampling(torch.from_numpy(u),
                                            torch.from_numpy(lw))
     for c in range(C):
