@@ -6,8 +6,8 @@
 Phases (each prints its own line; any failure raises and exits non-zero):
   1. the card's name and power limit; TF32 matmuls off;
   2. build and load the kernel library from every source in ``csrc/``
-     (the fused window and the resample-apply kernel), with their ptxas
-     lines;
+     (the fused window, the Philox generator and the resample-apply
+     kernel), with their ptxas lines;
   3. the fused-window kernel (K1) against its plain PyTorch version on the
      card, on the same draws, at C=256, N=1024, W=60 for lambda=1 and 0.95,
      and at the benchmark shape C=8192, N=1024, W=60 for lambda=1; then
@@ -21,7 +21,8 @@ Phases (each prints its own line; any failure raises and exits non-zero):
   6. the resample-apply kernel against its plain PyTorch version on the
      card, which must agree bitwise, at the shapes the TPU kernels it
      replaces ran (K2b: C=8192, N=1024, K=4; K3: C=8192, N=1000, K=4; K2a:
-     C=1, N=1024, K=4), at K=1, at an N beyond its shared-memory CDF and on
+     C=1, N=1024, K=4), at K=1, at the LGSSM default path's K=5 (state and
+     4-wide statistic), at an N beyond its shared-memory CDF and on
      degenerate weights; then the kernel and its plain version, which is
      the PyTorch call ``torch.searchsorted`` + ``torch.gather``, timed at
      the first three;
@@ -33,7 +34,35 @@ Phases (each prints its own line; any failure raises and exits non-zero):
   8. the other unfused smoothers at 256 chains, N=1000: poyiadjis_N2 (with
      bw_chunk), filter, and stratified resampling with the ESS gate;
   9. parameter recovery on the default path: 256 chains, 200 iterations,
-     multinomial, from A=0.3.
+     multinomial, from A=0.3;
+ 10. the standalone Philox normal generator (the counterpart of the TPU
+     probe kernel K4) against its plain PyTorch version: raw words bitwise
+     equal and normals equal at K4's shape (256 x 512) and at the shape of
+     the headline path's initial-state draw (8192 chains x 1024); the
+     probe's moment gate at 256 x 512; a Kolmogorov-Smirnov test against
+     N(0, 1) at 8192 x 1024; a sub-block drawn alone (t0 > 0) equal to the
+     same slice of a full draw; then kernel and plain version timed;
+ 11. K1 with in-kernel normals against its plain version (which draws the
+     same Philox normals) at C=256 and at the benchmark shape, and against
+     K1 fed the standalone generator's normals (bitwise); then timed;
+ 12. the headline configuration with ``rng="kernel"``: ``fit_scan`` as in
+     phase 4, 20 timed iterations, which must launch K1 and the generator
+     once per iteration and the resample-apply kernel never, with a peak
+     device memory below the size of the normals it no longer allocates;
+ 13. K1's ESS gate against its plain version at C=256 and the benchmark
+     shape (some steps skip, some resample), timed; then
+     ``fit_scan(resampler="systematic", ess_threshold=0.5)`` at 8192 chains,
+     which must launch only K1;
+ 14. the scalar LGSSM: K1's optimal and prior bodies against their plain
+     versions at C=256 (host and in-kernel normals) and at the benchmark
+     shape (in-kernel normals, the fits' configuration), then timed there;
+     the fused score over 1024 chains (T=16, N=1024, full window) against
+     ``ops/kalman.py``'s exact gradient for ``rng="host"``, ``rng="kernel"``
+     and ``ess_threshold=0.5`` (|z| < 5 per component);
+     ``LGSSMSampler.fit_scan`` at 8192 chains, N=1024, S=40, B=10, T=1000:
+     systematic with in-kernel normals for the optimal and the prior
+     kernel (K1 only) and the default multinomial resampler (the
+     resample-apply kernel only); parameter recovery from A=0.5 toward 0.9.
 The last three lines are the kernel report (JSON), the card's
 ``nvidia-smi`` name and power limit, and the result (JSON).
 Exits non-zero without a result when no CUDA device is available.
@@ -56,6 +85,18 @@ HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
 # position, ~11 search compares, propose 3, reweight 14, statistic 18,
 # update 6; the few float64 ones counted at the float32 rate).
 K1_OPS = 60
+# The same count split into the body (propose + reweight + statistic) and
+# the rest, and the options: csrc/lgssm_body.cuh (optimal: propose 15,
+# reweight 16, statistic 18; prior: 3, 9, 18); in-kernel normals, half a
+# Philox4x32-10 call (98 integer operations, counted at the float32 rate)
+# and one Box-Muller transform (14, log and cos counted as one each); the
+# ESS gate (w^2, its sum, the carried weight: 5).
+K1_BODY_OPS = {"svm": 35, "lgssm_optimal": 49, "lgssm_prior": 30}
+K1_FRAME_OPS = K1_OPS - K1_BODY_OPS["svm"]
+RNG_OPS, ESS_OPS = 49 + 14, 5
+# Operations of the standalone generator per pair of normals (see
+# csrc/philox_normals.cu).
+PHILOX_PAIR_OPS = 98 + 2 * 14
 
 
 def phase(name, msg):
@@ -108,9 +149,18 @@ def bound_ms(nbytes, ops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def reset_counts(fused_pf, resample):
+def k1_ops(C, body, rng=False, ess=False):
+    """Operations of one K1 call over C chains of the benchmark window."""
+    per = (K1_FRAME_OPS + K1_BODY_OPS[body] + (RNG_OPS if rng else 0)
+           + (ESS_OPS if ess else 0))
+    return C * W * N * per
+
+
+def reset_counts(fused_pf, resample, philox=None):
     fused_pf.fused_window.launches = 0
     resample.resample_apply.launches = 0
+    if philox is not None:
+        philox.philox_normals.launches = 0
 
 
 def check_finite(what, *tensors):
@@ -126,7 +176,7 @@ def main():
     from sgmcmc_tpu_torch.inference.samplers import SVMSampler
     from sgmcmc_tpu_torch.models import svm
     from sgmcmc_tpu_torch.ops import buffered, subsequence
-    from sgmcmc_tpu_torch.ops.cuda import build, fused_pf, resample
+    from sgmcmc_tpu_torch.ops.cuda import build, fused_pf, philox, resample
 
     # 1. the card
     name = torch.cuda.get_device_name(0)
@@ -155,15 +205,17 @@ def main():
                                                     device=dev), T)
     k1_err = 0.0
 
-    def check(out_k, out_r, lam, C):
-        check_finite(f"the K1 output at lambda={lam}", out_k)
+    def check(out_k, out_r, lam, C, tag="3 check", what=""):
+        """K1's gate against its plain version: every chain's loglik within
+        rtol 1e-4, the statistic within rtol=atol=1e-3 in >= 99% of them."""
+        check_finite(f"the K1 output {what} at lambda={lam}", out_k)
         ll_k, ll_r = out_k[:, -1], out_r[:, -1]
         ll_bad = int(((ll_k - ll_r).abs() > 1e-4 * ll_r.abs()).sum())
         st_k, st_r = out_k[:, :-1], out_r[:, :-1]
         st_ok = ((st_k - st_r).abs() <= 1e-3 + 1e-3 * st_r.abs()).all(1)
         n_flip = int((~st_ok).sum())
         err = float((out_k - out_r).abs().max())
-        phase("3 check", f"lambda={lam}: C={C} N={N} W={W}; loglik "
+        phase(tag, f"{what}lambda={lam}: C={C} N={N} W={W}; loglik "
               f"off rtol 1e-4 in {ll_bad} chains; statistic off rtol=atol="
               f"1e-3 in {n_flip} chains (selection flips at CDF near-ties); "
               f"max |kernel - plain| = {err:.3e}")
@@ -218,15 +270,18 @@ def main():
 
     run_k1()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     k1_launches = run_k1()
     dt = time.perf_counter() - t0
+    host_peak = torch.cuda.max_memory_allocated()
+    host_rate = C_BENCH * ITERS / dt
     p = sampler.parameters
     check_finite("the K1 path's parameters", p.A, p.LQinv_vec, p.LRinv_vec)
     phase("4 K1 path", f"fit_scan SGLD systematic C={C_BENCH} N={N} S={S} "
           f"B={B} T={T}: {ITERS} iterations in {dt:.3f} s, {k1_launches} "
-          f"K1 launches, {C_BENCH * ITERS / dt:.1f} aggregate steps/s "
-          f"({card})")
+          f"K1 launches, {host_rate:.1f} aggregate steps/s, peak device "
+          f"memory {host_peak / 2 ** 30:.3f} GiB ({card})")
 
     # 5. parameter recovery on K1's path
     rec = SVMSampler(observations=ys, device="cuda", seed=3)
@@ -252,6 +307,7 @@ def main():
 
     cases = [("K2b", 8192, 1024, 4, False), ("K3", 8192, 1000, 4, False),
              ("K2a", 1, 1024, 4, False), ("K=1", 8192, 1024, 1, False),
+             ("LGSSM default", 8192, 1024, 5, False),
              ("N>shared", 16, 131072, 1, False),
              ("degenerate", 64, 1024, 4, True)]
     if not 131072 > shared_n:
@@ -364,20 +420,361 @@ def main():
     if not abs(a_mean - 0.9) < abs(a_mean - 0.3):
         raise AssertionError(f"A did not move toward 0.9: {a_mean}")
 
+    # 10. the standalone Philox generator (K4's counterpart)
+    ph_err = 0.0
+    seeds_k4 = torch.tensor([123], dtype=torch.int64, device=dev)
+    seeds_main = torch.randint(-2 ** 63, 2 ** 63 - 1, (C_BENCH,),
+                               generator=gen, dtype=torch.int64, device=dev)
+    for label, sd, shape, stream in (
+            ("K4 shape", seeds_k4, (256, 1, 512), philox.STREAM_PROPOSAL),
+            ("initial-state draw", seeds_main, (1, 1, N),
+             philox.STREAM_INIT)):
+        words_k = philox.philox_words(sd, *shape, stream=stream)
+        words_r = philox.philox_words_reference(sd, *shape, stream=stream)
+        same_words = bool(torch.equal(words_k.long() & philox.MASK, words_r))
+        z_k = philox.philox_normals(sd, *shape, stream=stream)
+        z_r = philox.philox_normals_reference(sd, *shape, stream=stream)
+        err = float((z_k - z_r).abs().max())
+        ph_err = max(ph_err, err)
+        phase("10 philox", f"{label}: C={sd.numel()} W,Z,N={shape}: raw "
+              f"words bitwise equal {same_words}; normals max |kernel - "
+              f"plain| = {err!r} (tolerance 1e-5)")
+        if not same_words or not err <= 1e-5:
+            raise AssertionError(f"the Philox kernel differs from its plain "
+                                 f"version at {label}")
+    # layout independence on the card: steps t0 .. t0+3 drawn alone equal
+    # the same slice of a full window's draw
+    full_w = philox.philox_words(seeds_main[:64], W, 1, N)
+    full_z = philox.philox_normals(seeds_main[:64], W, 1, N)
+    part_w = philox.philox_words(seeds_main[16:48], 4, 1, N, t0=7)
+    part_z = philox.philox_normals(seeds_main[16:48], 4, 1, N, t0=7)
+    sliced = bool(torch.equal(part_w, full_w[16:48, 7:11])
+                  and torch.equal(part_z, full_z[16:48, 7:11]))
+    phase("10 philox", f"chains 16..47, steps 7..10 drawn alone (t0=7) == "
+          f"the same slice of a {W}-step draw, words and normals: {sliced}")
+    if not sliced:
+        raise AssertionError("the Philox kernel's stream depends on the "
+                             "block it is drawn in")
+    del full_w, full_z, part_w, part_z
+    z = philox.philox_normals(seeds_k4, 256, 1, 512)[0, :, 0].double()
+    mean, std = float(z.mean()), float(z.std(unbiased=False))
+    kurt = float((((z - z.mean()) / z.std(unbiased=False)) ** 4).mean())
+    same = bool(torch.equal(philox.philox_normals(seeds_k4, 256, 1, 512),
+                            philox.philox_normals(seeds_k4, 256, 1, 512)))
+    other = bool(torch.equal(philox.philox_normals(seeds_k4 + 1, 256, 1, 512),
+                             philox.philox_normals(seeds_k4, 256, 1, 512)))
+    from scipy import stats
+    z_ks = philox.philox_normals(seeds_main, 1, 1, N).reshape(-1)
+    ks = stats.kstest(z_ks.double().cpu().numpy(), "norm")
+    phase("10 philox", f"probe gate at 256 x 512: mean {mean:.5f}, std "
+          f"{std:.5f}, kurtosis {kurt:.4f}, deterministic {same}, seed-"
+          f"sensitive {not other}; KS against N(0, 1) at {C_BENCH} x {N}: "
+          f"D = {ks.statistic:.3e}, p = {ks.pvalue:.4f}")
+    if not (abs(mean) < 0.02 and abs(std - 1) < 0.02 and abs(kurt - 3) < 0.2
+            and same and not other):
+        raise AssertionError("the Philox normals fail the probe's gate")
+    if not ks.pvalue > 1e-3:
+        raise AssertionError(f"KS test p = {ks.pvalue} below 1e-3")
+    # free the checks' ~0.3 GB so that later phases' peaks are their fits'
+    del words_k, words_r, z_k, z_r, z, z_ks
+    ph_ms = cuda_ms(lambda: philox.philox_normals(
+        seeds_main, 1, 1, N, stream=philox.STREAM_INIT), 50)
+    ph_plain = cuda_ms(lambda: philox.philox_normals_reference(
+        seeds_main, 1, 1, N, stream=philox.STREAM_INIT), 5)
+    ph_bytes = 8 * C_BENCH + 4 * C_BENCH * N
+    ph_bound, ph_by = bound_ms(ph_bytes, C_BENCH * N // 2 * PHILOX_PAIR_OPS)
+    # a yardstick only: torch's own generator, other bits from other seeds
+    randn_ms = cuda_ms(lambda: torch.randn((C_BENCH, 1, N), device=dev), 50)
+    phase("10 philox", f"{C_BENCH} x {N} normals: kernel {ph_ms:.4f} ms, "
+          f"plain {ph_plain:.4f} ms, bound {ph_bound:.4f} ms by {ph_by}; "
+          f"torch.randn of the same shape {randn_ms:.4f} ms ({card})")
+
+    # 11. K1 with in-kernel normals
+    def seeded(C):
+        args = window_inputs(gen, C, ys, svm, subsequence, buffered)
+        sd = torch.randint(-2 ** 63, 2 ** 63 - 1, (C,), generator=gen,
+                           dtype=torch.int64, device=dev)
+        return (args[0], args[1], None, *args[3:]), sd
+
+    rng_err = 0.0
+    for C in (C_CHECK, C_BENCH):
+        args, sd = seeded(C)
+        out_k = fused_pf.fused_window(svm.FUSED, *args, seeds=sd)
+        out_r = fused_pf.fused_window_reference(svm.FUSED, *args, seeds=sd)
+        rng_err = max(rng_err, check(out_k, out_r, 1.0, C, "11 K1 rng",
+                                     "in-kernel normals, "))
+        fed = fused_pf.fused_window(
+            svm.FUSED, args[0], args[1], philox.philox_normals(sd, W, 1, N),
+            *args[3:])
+        same = bool(torch.equal(out_k, fed))
+        phase("11 K1 rng", f"C={C}: kernel with seeds == kernel fed the "
+              f"generator's normals, bitwise: {same}")
+        if not same:
+            raise AssertionError("in-kernel normals differ from the "
+                                 "standalone generator's")
+        del out_k, out_r, fed
+    rng_ms = cuda_ms(lambda: fused_pf.fused_window(svm.FUSED, *args,
+                                                   seeds=sd), 5)
+    rng_plain = cuda_ms(lambda: fused_pf.fused_window_reference(
+        svm.FUSED, *args, seeds=sd), 2)
+    rng_bytes = 4 * (sum(a.numel() for a in args if a is not None)
+                     + C_BENCH * (svm.FUSED.n_stat + 1)) + 8 * C_BENCH
+    rng_bound, rng_by = bound_ms(rng_bytes, k1_ops(C_BENCH, "svm", rng=True))
+    phase("11 K1 rng", f"one window call C={C_BENCH} N={N} W={W}: kernel "
+          f"{rng_ms:.3f} ms (host normals, phase 3: {k1_ms:.3f} ms), plain "
+          f"{rng_plain:.3f} ms, bound {rng_bound:.3f} ms by {rng_by} "
+          f"({rng_bytes / 1e6:.1f} MB) ({card})")
+    del args
+
+    # 12. the headline configuration with rng="kernel"
+    def run_fit(smp, expect, n_iters=ITERS, C=C_BENCH, **fkw):
+        """One timed fit_scan from zeroed counts: (seconds, launches of
+        (K1, resample-apply, Philox), peak device memory)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fused_pf, resample, philox)
+        t0 = time.perf_counter()
+        _, aux = smp.fit_scan("SGLD", num_iters=n_iters, epsilon=0.1,
+                              num_chains=C, record="none", return_aux=True,
+                              **fkw)
+        float(aux[:, -1].sum())                   # synchronises
+        dt = time.perf_counter() - t0
+        launches = (fused_pf.fused_window.launches,
+                    resample.resample_apply.launches,
+                    philox.philox_normals.launches)
+        if launches != expect:
+            raise AssertionError(f"(K1, resample-apply, Philox) launches "
+                                 f"{launches}, expected {expect}, for {fkw}")
+        p = smp.parameters
+        check_finite(f"the fit {fkw}", aux,
+                     *[getattr(p, f) for f in p.__dataclass_fields__])
+        return dt, launches, torch.cuda.max_memory_allocated()
+
+    kkw = dict(kw, rng="kernel")
+    run_fit(sampler, (ITERS, 0, ITERS), **kkw)    # warm-up
+    dt, (rng_launches, _, ph_launches), rng_peak = run_fit(
+        sampler, (ITERS, 0, ITERS), **kkw)
+    normals_bytes = 4 * C_BENCH * W * N
+    phase("12 headline rng", f"fit_scan SGLD systematic rng='kernel' "
+          f"C={C_BENCH} N={N} S={S} B={B} T={T}: {ITERS} iterations in "
+          f"{dt:.3f} s, {rng_launches} K1 and {ph_launches} Philox launches, "
+          f"0 resample-apply, {C_BENCH * ITERS / dt:.1f} aggregate steps/s "
+          f"(rng='host', phase 4: {host_rate:.1f}); peak device memory "
+          f"{rng_peak / 2 ** 30:.3f} GiB (rng='host': "
+          f"{host_peak / 2 ** 30:.3f} GiB; the normals alone "
+          f"{normals_bytes / 2 ** 30:.3f} GiB) ({card})")
+    if not rng_peak < normals_bytes:
+        raise AssertionError("the rng='kernel' fit's peak memory leaves room "
+                             "for the [C, W, Z, N] normals")
+
+    # 13. K1's ESS gate
+    ess_err = 0.0
+    for C in (C_CHECK, C_BENCH):
+        args = window_inputs(gen, C, ys, svm, subsequence, buffered)
+        out_k = fused_pf.fused_window(svm.FUSED, *args, ess_threshold=0.5)
+        out_r = fused_pf.fused_window_reference(svm.FUSED, *args,
+                                                ess_threshold=0.5)
+        ess_err = max(ess_err, check(out_k, out_r, 1.0, C, "13 K1 ESS",
+                                     "ESS gate 0.5, "))
+        always = fused_pf.fused_window(svm.FUSED, *args)
+        never = fused_pf.fused_window(svm.FUSED, *args, ess_threshold=0.0)
+        skip = float((out_k != always).any(1).float().mean())
+        res = float((out_k != never).any(1).float().mean())
+        phase("13 K1 ESS", f"C={C}: chains whose gated window differs from "
+              f"always resampling {skip:.2%} (steps skipped), from never "
+              f"resampling {res:.2%} (steps resampled)")
+        if not (skip > 0.5 and res > 0.5):
+            raise AssertionError("the ESS gate did not both skip and "
+                                 "resample")
+        del out_k, out_r, always, never
+    ess_ms = cuda_ms(lambda: fused_pf.fused_window(svm.FUSED, *args,
+                                                   ess_threshold=0.5), 5)
+    ess_plain = cuda_ms(lambda: fused_pf.fused_window_reference(
+        svm.FUSED, *args, ess_threshold=0.5), 2)
+    ess_bytes = 4 * (sum(a.numel() for a in args)
+                     + C_BENCH * (svm.FUSED.n_stat + 1))
+    ess_bound, ess_by = bound_ms(ess_bytes, k1_ops(C_BENCH, "svm", ess=True))
+    phase("13 K1 ESS", f"one window call C={C_BENCH}: kernel {ess_ms:.3f} "
+          f"ms, plain {ess_plain:.3f} ms, bound {ess_bound:.3f} ms by "
+          f"{ess_by} ({card})")
+    del args
+    ekw = dict(kw, ess_threshold=0.5)
+    dt, (ess_launches, _, _), _ = run_fit(sampler, (ITERS, 0, 0), **ekw)
+    phase("13 K1 ESS", f"fit_scan SGLD systematic ess_threshold=0.5 "
+          f"C={C_BENCH}: {ITERS} iterations in {dt:.3f} s, {ess_launches} "
+          f"K1 launches, 0 resample-apply, {C_BENCH * ITERS / dt:.1f} "
+          f"aggregate steps/s ({card})")
+
+    # 14. the scalar LGSSM
+    from sgmcmc_tpu_torch.inference import sgmcmc
+    from sgmcmc_tpu_torch.inference.samplers import LGSSMSampler
+    from sgmcmc_tpu_torch.models import lgssm, registry
+    ys_l, _ = lgssm.generate_data(gen, lgssm.from_scalars(
+        0.9, 0.5, 1.0, device=dev), T)
+
+    def lgssm_inputs(C):
+        """K1 inputs for C chains of the LGSSM on random windows of ys_l
+        (x0 from the (0, 10) initial-state prior)."""
+        svm_args = window_inputs(gen, C, ys_l, svm, subsequence, buffered)
+        u = torch.rand((C, 3), generator=gen, device=dev)
+        pvec = torch.stack([0.5 + 0.45 * u[:, 0], torch.ones_like(u[:, 0]),
+                            (0.3 + 1.2 * u[:, 1]) ** -0.5,
+                            (0.5 + 1.5 * u[:, 2]) ** -0.5], -1).contiguous()
+        x0 = (10.0 ** 0.5 * torch.randn((C, 1, N), generator=gen,
+                                        device=dev)).contiguous()
+        return (pvec, x0) + svm_args[2:]
+
+    lg = {}
+    for body, model in (("lgssm_optimal", lgssm.FUSED),
+                        ("lgssm_prior", lgssm.FUSED_PRIOR)):
+        args = lgssm_inputs(C_CHECK)
+        out_k = fused_pf.fused_window(model, *args)
+        out_r = fused_pf.fused_window_reference(model, *args)
+        err = check(out_k, out_r, 1.0, C_CHECK, "14 LGSSM K1",
+                    f"{body}, host normals, ")
+        args = args[:2] + (None,) + args[3:]
+        sd = torch.randint(-2 ** 63, 2 ** 63 - 1, (C_CHECK,), generator=gen,
+                           dtype=torch.int64, device=dev)
+        out_k = fused_pf.fused_window(model, *args, seeds=sd)
+        out_r = fused_pf.fused_window_reference(model, *args, seeds=sd)
+        err = max(err, check(out_k, out_r, 1.0, C_CHECK, "14 LGSSM K1",
+                             f"{body}, in-kernel normals, "))
+        # the fit's configuration (in-kernel normals) at the shape the fit
+        # gives the kernel: checked, then timed
+        args = lgssm_inputs(C_BENCH)
+        args = args[:2] + (None,) + args[3:]
+        sd = torch.randint(-2 ** 63, 2 ** 63 - 1, (C_BENCH,), generator=gen,
+                           dtype=torch.int64, device=dev)
+        out_k = fused_pf.fused_window(model, *args, seeds=sd)
+        out_r = fused_pf.fused_window_reference(model, *args, seeds=sd)
+        err = max(err, check(out_k, out_r, 1.0, C_BENCH, "14 LGSSM K1",
+                             f"{body}, in-kernel normals, "))
+        del out_k, out_r
+        ms = cuda_ms(lambda: fused_pf.fused_window(model, *args, seeds=sd), 5)
+        plain = cuda_ms(lambda: fused_pf.fused_window_reference(
+            model, *args, seeds=sd), 2)
+        nbytes = 4 * (sum(a.numel() for a in args if a is not None)
+                      + C_BENCH * (model.n_stat + 1)) + 8 * C_BENCH
+        bnd, by = bound_ms(nbytes, k1_ops(C_BENCH, body, rng=True))
+        lg[body] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                        bound_by=by)
+        phase("14 LGSSM K1", f"{body}, in-kernel normals, one window call "
+              f"C={C_BENCH} N={N} W={W}: kernel {ms:.3f} ms, plain "
+              f"{plain:.3f} ms, bound {bnd:.3f} ms by {by} ({card})")
+        del args
+
+    # the oracle: the full-window fused score against the exact gradient
+    T_OR, C_OR = 16, 1024
+    truth = lgssm.from_scalars(0.8, 0.5, 1.0, device=dev)
+    ys_o, _ = lgssm.generate_data(gen, truth, T_OR)
+    exact = lgssm.gradient_marginal_loglikelihood(truth, ys_o)
+    exact_vec = torch.stack([exact.LRinv_vec[0, 0], exact.LQinv_vec[0, 0],
+                             exact.C[0, 0, 0], exact.A[0, 0, 0]])
+    rows = lgssm.LGSSMParams(*[x.expand((C_OR,) + x.shape[1:]).contiguous()
+                               for x in (truth.A, truth.C, truth.LQinv_vec,
+                                         truth.LRinv_vec)])
+    for label, okw in (("rng='host'", {}), ("rng='kernel'", {"rng": "kernel"}),
+                       ("ess_threshold=0.5", {"ess_threshold": 0.5})):
+        cfg = sgmcmc.PFScoreConfig(n_particles=N, resampler="systematic",
+                                   **okw)
+        score = sgmcmc.make_pf_score_fn(
+            lgssm.OPTIMAL_KERNEL, lgssm.grad_statistic, 4, lgssm.unpack_grad,
+            cfg, T_OR, prior_mean_var_fn=registry.LGSSM.prior_mean_var,
+            fused_model=lgssm.FUSED)
+        reset_counts(fused_pf, resample, philox)
+        g, ll = score(gen, rows, ys_o)
+        f = torch.stack([g.LRinv_vec[:, 0], g.LQinv_vec[:, 0], g.C[:, 0, 0],
+                         g.A[:, 0, 0]], 1).double()
+        check_finite(f"the oracle score {label}", f, ll)
+        zval = (f.mean(0) - exact_vec) / (f.std(0) / C_OR ** 0.5 + 1e-9)
+        phase("14 LGSSM oracle", f"{label}: T={T_OR} N={N} over {C_OR} "
+              f"chains, {fused_pf.fused_window.launches} K1 launch; z "
+              f"[LRinv, LQinv, C, A] = "
+              f"{[round(float(v), 3) for v in zval]}; exact "
+              f"{[round(float(v), 4) for v in exact_vec]}")
+        if fused_pf.fused_window.launches != 1:
+            raise AssertionError("the oracle score did not run K1")
+        if not bool((zval.abs() < 5).all()):
+            raise AssertionError(f"the fused score is off the exact "
+                                 f"gradient at {label}: z = {zval}")
+
+    # the full-width fits
+    lkw = dict(N=N, subsequence_length=S, buffer_length=B)
+    lg_launches = {}
+    for label, fkw, expect in (
+            ("systematic rng='kernel', optimal",
+             dict(lkw, resampler="systematic", rng="kernel"),
+             (ITERS, 0, ITERS)),
+            ("systematic rng='kernel', prior",
+             dict(lkw, resampler="systematic", rng="kernel", kernel="prior"),
+             (ITERS, 0, ITERS)),
+            ("multinomial (default), optimal", lkw, (0, ITERS * W, 0))):
+        fit = LGSSMSampler(observations=ys_l, seed=7)
+        fit.parameters = lgssm.from_scalars(0.5, 1.0, 2.0)
+        # warm-up of 2 iterations, then the chains continue for ITERS
+        run_fit(fit, tuple(2 * e // ITERS for e in expect), 2, **fkw)
+        dt, launches, peak = run_fit(fit, expect, **fkw)
+        if "prior" in label:
+            lg_launches["lgssm_prior"] = launches[0]
+        elif "systematic" in label:
+            lg_launches["lgssm_optimal"] = launches[0]
+        phase("14 LGSSM fit", f"LGSSMSampler.fit_scan SGLD {label} "
+              f"C={C_BENCH} N={N} S={S} B={B} T={T}: {ITERS} iterations in "
+              f"{dt:.3f} s, (K1, resample-apply, Philox) launches "
+              f"{launches}, {C_BENCH * ITERS / dt:.1f} aggregate steps/s, "
+              f"peak {peak / 2 ** 30:.3f} GiB ({card})")
+        del fit
+
+    rec = LGSSMSampler(observations=ys_l, seed=8)
+    rec.parameters = lgssm.from_scalars(0.5, 1.0, 2.0)
+    trace = rec.fit_scan("SGLD", num_iters=200, epsilon=0.05,
+                         num_chains=256, record="all", resampler="systematic",
+                         rng="kernel", **lkw)
+    a_mean = float(trace.A[:, -50:].mean())
+    phase("14 LGSSM recovery", f"systematic rng='kernel': chain-mean A over "
+          f"the last 50 of 200 iterations: {a_mean:.4f} (start 0.5, truth "
+          f"0.9)")
+    if not abs(a_mean - 0.9) < abs(a_mean - 0.5):
+        raise AssertionError(f"A did not move toward 0.9: {a_mean}")
+
     main_shape = ra_times["K2b"]
+    k1_src = "sgmcmc_tpu_torch/csrc/fused_window.cu"
+    k1_tpu = "sgmcmc_tpu/ops/pallas/fused_pf.py:121"
     print(json.dumps({"kernels": [
-        {"name": "fused_window_svm", "route": "cuda",
-         "source": "sgmcmc_tpu_torch/csrc/fused_window.cu",
-         "replaces": "sgmcmc_tpu/ops/pallas/fused_pf.py:121",
+        {"name": "fused_window_svm", "route": "cuda", "source": k1_src,
+         "replaces": k1_tpu,
          "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None},
+        {"name": "fused_window_svm_rng_kernel", "route": "cuda",
+         "source": k1_src + " + sgmcmc_tpu_torch/csrc/philox.cuh",
+         "replaces": k1_tpu + " (rng='kernel', _box_muller :109)",
+         "launches": rng_launches, "max_abs_err": rng_err, "ms": rng_ms,
+         "plain_ms": rng_plain, "bound_ms": rng_bound, "bound_by": rng_by,
+         "library_ms": None},
+        {"name": "fused_window_svm_ess_gate", "route": "cuda",
+         "source": k1_src,
+         "replaces": k1_tpu + " (ess_threshold, :190-201)",
+         "launches": ess_launches, "max_abs_err": ess_err, "ms": ess_ms,
+         "plain_ms": ess_plain, "bound_ms": ess_bound, "bound_by": ess_by,
+         "library_ms": None},
+        *[{"name": f"fused_window_{body}_rng_kernel", "route": "cuda",
+           "source": k1_src + " + sgmcmc_tpu_torch/csrc/lgssm_body.cuh",
+           "replaces": k1_tpu + " (sgmcmc_tpu/models/lgssm.py:663-729)",
+           "launches": lg_launches[body], **lg[body], "library_ms": None}
+          for body in ("lgssm_optimal", "lgssm_prior")],
         {"name": "resample_apply", "route": "cuda",
          "source": "sgmcmc_tpu_torch/csrc/resample_apply.cu",
          "replaces": "sgmcmc_tpu/ops/pallas/resample.py:178 (K2a), "
                      ":232 (K2b), :31 (K3)",
          "launches": ra_launches[1024], "max_abs_err": ra_err,
-         **main_shape}]}))
+         **main_shape},
+        {"name": "philox_normals", "route": "cuda",
+         "source": "sgmcmc_tpu_torch/csrc/philox_normals.cu",
+         "replaces": "scripts/tpu_probe_kernel_rng.py:15",
+         "launches": ph_launches, "max_abs_err": ph_err, "ms": ph_ms,
+         "plain_ms": ph_plain, "bound_ms": ph_bound, "bound_by": ph_by,
+         "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

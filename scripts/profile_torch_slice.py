@@ -3,13 +3,16 @@
 
     python3 scripts/profile_torch_slice.py [--chains 8192] [--iters 20]
         [--runs 7] [--resampler systematic|multinomial|stratified]
-        [--particles 1024]
+        [--particles 1024] [--rng host|kernel] [--model svm|lgssm]
 
 Runs ``SVMSampler.fit_scan("SGLD", record="none")`` at the benchmark
 configuration (SVM, T=1000, N=1024, S=40, B=10, Poyiadjis O(N), systematic
 resampling: the fused-window path) or, with ``--resampler multinomial``,
 the JAX package's default resampler (the unfused path, one resample-apply
-launch per window step) and prints:
+launch per window step).  ``--rng kernel`` generates the fused window's
+normals on the card (the JAX headline's ``rng="kernel"``); ``--model
+lgssm`` runs ``LGSSMSampler`` on the scalar LGSSM instead (true A=0.9,
+C=1, Q=0.5, R=1; start A=0.5, Q=1, R=2).  It prints:
   - the card's ``nvidia-smi`` name and power limit;
   - aggregate steps/s of ``--runs`` timed fits after one warm-up (each run,
     then the median and the lower and upper quartile);
@@ -81,12 +84,16 @@ def main():
     ap.add_argument("--resampler", default="systematic",
                     choices=("systematic", "multinomial", "stratified"))
     ap.add_argument("--particles", type=int, default=1024)
+    ap.add_argument("--rng", default="host", choices=("host", "kernel"))
+    ap.add_argument("--model", default="svm", choices=("svm", "lgssm"))
     args = ap.parse_args()
     N = args.particles
     if not torch.cuda.is_available():
         sys.exit("profile_torch_slice: no CUDA device is available")
-    from sgmcmc_tpu_torch.inference.samplers import SVMSampler
-    from sgmcmc_tpu_torch.models import svm
+    from sgmcmc_tpu_torch.inference.samplers import LGSSMSampler, SVMSampler
+    from sgmcmc_tpu_torch.models import lgssm, svm
+    mod, cls = (svm, SVMSampler) if args.model == "svm" else (lgssm,
+                                                              LGSSMSampler)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -95,14 +102,15 @@ def main():
     print(f"card: {card}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    ys, _ = svm.generate_data(gen, svm.from_scalars(0.9, 0.5, 1.0, device=dev),
+    ys, _ = mod.generate_data(gen, mod.from_scalars(0.9, 0.5, 1.0, device=dev),
                               T)
-    sampler = SVMSampler(observations=ys, device="cuda", seed=2)
-    sampler.parameters = svm.from_scalars(0.5, 1.0, 2.0)
+    sampler = cls(observations=ys, device="cuda", seed=2)
+    sampler.parameters = mod.from_scalars(0.5, 1.0, 2.0)
     kw = dict(N=N, subsequence_length=S, buffer_length=B, pf="poyiadjis_N",
-              resampler=args.resampler)
-    print(f"config: {args.chains} chains, N={N}, S={S}, B={B}, T={T}, "
-          f"Poyiadjis O(N), {args.resampler} resampling")
+              resampler=args.resampler, rng=args.rng)
+    print(f"config: {args.model}, {args.chains} chains, N={N}, S={S}, B={B}, "
+          f"T={T}, Poyiadjis O(N), {args.resampler} resampling, "
+          f"rng={args.rng}")
 
     def fit():
         _, aux = sampler.fit_scan("SGLD", num_iters=args.iters, epsilon=0.1,
@@ -162,12 +170,13 @@ def main():
     print(f"peak device memory {peak / 2 ** 30:.3f} GiB")
     bw = copy_bandwidth()
     print(f"device-to-device copy: {bw / 1e9:.1f} GB/s read+written ({card})")
-    if fused:
-        us, n = fused[0]
-        stream = args.chains * W * N * 4 / (us / n / 1e6)
-        print(f"fused window: {us / n / 1e3:.3f} ms per call, normals "
-              f"streamed at {stream / 1e9:.1f} GB/s = {stream / bw:.2%} of "
-              f"the copy rate ({card})")
+    for us, n in fused:
+        msg = f"fused window: {us / n / 1e3:.3f} ms per call"
+        if args.rng == "host":
+            stream = args.chains * W * N * 4 / (us / n / 1e6)
+            msg += (f", normals streamed at {stream / 1e9:.1f} GB/s = "
+                    f"{stream / bw:.2%} of the copy rate")
+        print(f"{msg} ({card})")
 
 
 if __name__ == "__main__":

@@ -15,6 +15,7 @@ __version__ = "0.1.0"
 _EXPORTS = {
     "Sampler": "sgmcmc_tpu_torch.inference.samplers",
     "SVMSampler": "sgmcmc_tpu_torch.inference.samplers",
+    "LGSSMSampler": "sgmcmc_tpu_torch.inference.samplers",
 }
 
 __all__ = ["__version__", *_EXPORTS]

@@ -22,13 +22,29 @@
 // The epilogue adds the last step's increment and writes the
 // weight-averaged statistic and the log-likelihood: out[c] = [stat | ll].
 //
-// What bounds it on the card: the proposal normals are streamed from
+// Options (template parameters, so that each variant compiles without the
+// others' code and registers):
+//   - in-kernel normals (seeds != nullptr): the proposal normals come from
+//     the Philox generator of philox.cuh, keyed by the chain's seed, at
+//     counter (i >> 1, t, q, 0), instead of the normals array (the JAX
+//     package's rng="kernel", _box_muller);
+//   - the ESS gate (ess_thr >= 0): with ESS = tot^2 / sum w^2 of the
+//     max-shifted weights, a chain resamples only when ESS < ess_thr * N or
+//     its weights are degenerate; otherwise every particle keeps its own
+//     state (ancestor i) and its new log-weight gains
+//     log w_i - m - log tot + log N (fused_pf.py's ESS gate).
+//
+// What bounds it on the card: with host normals, the normals stream from
 // device memory, W*Z*N*4 bytes per chain (240 KB at W=60, N=1024; 2 GB per
 // call at 8192 chains), against a serial chain of W steps of about eight
 // block barriers each.  The design reads the normals once, coalesced (a
 // thread's c particles are adjacent), keeps every carry in shared memory
 // (about (2K+2)*N*4 bytes, K = D+H), and relies on several resident blocks
-// per SM to hide one block's barriers behind another's loads.
+// per SM to hide one block's barriers behind another's loads.  With
+// in-kernel normals the stream is gone and operations bound it: one
+// Philox call per pair of particles, computed once by the thread that owns
+// both (a thread's particles are contiguous), and a Box-Muller transform
+// per particle, all in registers.
 //
 // The prefix sum runs in float64 so that the float32 CDF does not depend
 // on the summation order: the plain PyTorch version (torch.cumsum in
@@ -38,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "lgssm_body.cuh"
+#include "philox.cuh"
 #include "svm_body.cuh"
 
 namespace {
@@ -119,15 +137,17 @@ __device__ double block_exclusive_scan(double v, double* dred,
   return warp_excl + (x - v);
 }
 
-template <class Body>
+template <class Body, bool kRng, bool kGate>
 __global__ void __launch_bounds__(kThreads)
 fused_window_kernel(const float* __restrict__ pvec,     // [C, P]
                     const float* __restrict__ x0,       // [C, D, N]
-                    const float* __restrict__ normals,  // [C, W, Z, N]
+                    const float* __restrict__ normals,  // [C, W, Z, N] or
+                                                        // null with seeds
+                    const long long* __restrict__ seeds,  // [C] or null
                     const float* __restrict__ ys,       // [C, W]
                     const float* __restrict__ weights,  // [C, W]
                     const float* __restrict__ xi,       // [C, W]
-                    float lam, int W, int N,
+                    float lam, double ess_thr, int W, int N,
                     float* __restrict__ out) {          // [C, H + 1]
   constexpr int D = Body::D, Z = Body::Z, H = Body::H, P = Body::P;
   constexpr int K = D + H;
@@ -147,6 +167,12 @@ fused_window_kernel(const float* __restrict__ pvec,     // [C, P]
   const float fN = static_cast<float>(N);
   const float logN = logf(fN);
   const float om = 1.0f - lam;
+  uint32_t key0 = 0, key1 = 0;
+  if (kRng) {
+    const unsigned long long sd = static_cast<unsigned long long>(seeds[c]);
+    key0 = static_cast<uint32_t>(sd);
+    key1 = static_cast<uint32_t>(sd >> 32);
+  }
 
   float pv[P];
 #pragma unroll
@@ -176,11 +202,12 @@ fused_window_kernel(const float* __restrict__ pvec,     // [C, P]
     const float mf = isfinite(m) ? m : 0.0f;
 
     // 2. weights, float64 prefix sum, CDF, deferred loglik increment
-    double part = 0.0;
+    double part = 0.0, part2 = 0.0;
     for (int i = i0; i < i1; ++i) {
       const float w = expf(logw[i] - mf);
       cdf[i] = w;
       part += static_cast<double>(w);
+      part2 += static_cast<double>(w) * static_cast<double>(w);
     }
     double tot;
     double run = block_exclusive_scan(part, dred, &tot);
@@ -188,6 +215,13 @@ fused_window_kernel(const float* __restrict__ pvec,     // [C, P]
     const float totf = static_cast<float>(tot);
     if (t > 0)
       ll = ll + aux[W + t - 1] * (ok ? mf + logf(totf) - logN : -INFINITY);
+    // ESS gate: one more float64 block reduction, for sum w^2
+    bool do_res = true;
+    if (kGate) {
+      const double sumsq = block_sum(part2, dred);
+      const double ess = tot * tot / (sumsq > 0.0 ? sumsq : 1.0);
+      do_res = !ok || ess < ess_thr * static_cast<double>(N);
+    }
     for (int i = i0; i < i1; ++i) {
       run += static_cast<double>(cdf[i]);
       cdf[i] = ok ? static_cast<float>(run / tot)
@@ -211,24 +245,45 @@ fused_window_kernel(const float* __restrict__ pvec,     // [C, P]
 
     // 4. resample, propose, reweight, statistic
     const float y = aux[t], wt = aux[W + t], xit = aux[2 * W + t];
-    const float* nz = normals + (static_cast<size_t>(c) * W + t) * Z * N;
+    const float* nz = kRng ? nullptr
+        : normals + (static_cast<size_t>(c) * W + t) * Z * N;
+    const float ltot = logf(totf);
+    uint4 r[Z];   // Philox words of the pair (i & ~1, i | 1), per noise dim
     for (int i = i0; i < i1; ++i) {
-      const float pos = (static_cast<float>(i) + xit) / fN;
-      int lo = 0, hi = N;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (cdf[mid] <= pos) lo = mid + 1; else hi = mid;
+      int a = i;
+      if (do_res) {
+        const float pos = (static_cast<float>(i) + xit) / fN;
+        int lo = 0, hi = N;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (cdf[mid] <= pos) lo = mid + 1; else hi = mid;
+        }
+        a = min(lo, N - 1);
       }
-      const int a = min(lo, N - 1);
       float x[D], s[H], z[Z], xn[D], hv[H];
 #pragma unroll
       for (int d = 0; d < D; ++d) x[d] = Vc[d * N + a];
 #pragma unroll
       for (int h = 0; h < H; ++h) s[h] = Vc[(D + h) * N + a];
+      if (kRng) {
+        if (i == i0 || (i & 1) == 0) {
 #pragma unroll
-      for (int q = 0; q < Z; ++q) z[q] = nz[q * N + i];
+          for (int q = 0; q < Z; ++q)
+            r[q] = philox_pair(key0, key1, i >> 1, t, q, 0);
+        }
+#pragma unroll
+        for (int q = 0; q < Z; ++q)
+          z[q] = (i & 1) ? box_muller(r[q].z, r[q].w)
+                         : box_muller(r[q].x, r[q].y);
+      } else {
+#pragma unroll
+        for (int q = 0; q < Z; ++q) z[q] = nz[q * N + i];
+      }
+      // the gate's carried weight reads this particle's old log-weight
+      const float carried = do_res ? 0.0f : logw[i] - mf - ltot + logN;
       Body::propose(pv, z, x, y, xn);
-      logw[i] = Body::reweight(pv, x, xn, y);
+      const float lw = Body::reweight(pv, x, xn, y);
+      logw[i] = do_res ? lw : lw + carried;
       Body::stat(pv, x, xn, y, hv);
 #pragma unroll
       for (int d = 0; d < D; ++d) Vn[d * N + i] = xn[d];
@@ -278,42 +333,66 @@ size_t smem_bytes(int W, int N) {
                          + 2 * static_cast<size_t>(K) * N);
 }
 
-template <class Body>
-int launch(const float* pvec, const float* x0, const float* normals,
-           const float* ys, const float* weights, const float* xi,
-           float* out, int C, int W, int N, float lam, void* stream) {
+template <class Body, bool kRng, bool kGate>
+int launch_variant(const float* pvec, const float* x0, const float* normals,
+                   const long long* seeds, const float* ys,
+                   const float* weights, const float* xi, float* out, int C,
+                   int W, int N, float lam, double ess_thr, void* stream) {
   const size_t smem = smem_bytes<Body>(W, N);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        fused_window_kernel<Body>,
+        fused_window_kernel<Body, kRng, kGate>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  fused_window_kernel<Body><<<C, kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      pvec, x0, normals, ys, weights, xi, lam, W, N, out);
+  fused_window_kernel<Body, kRng, kGate><<<
+      C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      pvec, x0, normals, seeds, ys, weights, xi, lam, ess_thr, W, N, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class Body>
+int launch(const float* pvec, const float* x0, const float* normals,
+           const long long* seeds, const float* ys, const float* weights,
+           const float* xi, float* out, int C, int W, int N, float lam,
+           double ess_thr, void* stream) {
+  if ((normals == nullptr) == (seeds == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool rng = seeds != nullptr, gate = ess_thr >= 0.0;
+  auto* variant = rng
+      ? (gate ? &launch_variant<Body, true, true>
+              : &launch_variant<Body, true, false>)
+      : (gate ? &launch_variant<Body, false, true>
+              : &launch_variant<Body, false, false>);
+  return variant(pvec, x0, normals, seeds, ys, weights, xi, out, C, W, N,
+                 lam, ess_thr, stream);
 }
 
 }  // namespace
 
+// One pair of entry points per body: the bytes of dynamic shared memory a
+// block needs, and the launch on `stream` of the calling thread's current
+// device (the caller selects it), which returns cudaGetLastError().
+// Exactly one of `normals` (host normals) and `seeds` (in-kernel normals)
+// is non-null; a negative `ess_thr` turns the ESS gate off.
+#define SGMCMC_FUSED_WINDOW_ENTRY(NAME, BODY)                                \
+  size_t sgmcmc_fused_window_##NAME##_smem(int W, int N) {                   \
+    return smem_bytes<BODY>(W, N);                                           \
+  }                                                                          \
+  int sgmcmc_fused_window_##NAME(                                            \
+      const float* pvec, const float* x0, const float* normals,              \
+      const long long* seeds, const float* ys, const float* weights,         \
+      const float* xi, float* out, int C, int W, int N, float lam,           \
+      double ess_thr, void* stream) {                                        \
+    return launch<BODY>(pvec, x0, normals, seeds, ys, weights, xi, out, C,   \
+                        W, N, lam, ess_thr, stream);                         \
+  }
+
 extern "C" {
 
-// Bytes of dynamic shared memory one block of the SVM body needs.
-size_t sgmcmc_fused_window_svm_smem(int W, int N) {
-  return smem_bytes<SvmBody>(W, N);
-}
-
-// Launches the SVM window on `stream` of the calling thread's current
-// device (the caller selects it); returns cudaGetLastError().
-int sgmcmc_fused_window_svm(const float* pvec, const float* x0,
-                            const float* normals, const float* ys,
-                            const float* weights, const float* xi,
-                            float* out, int C, int W, int N, float lam,
-                            void* stream) {
-  return launch<SvmBody>(pvec, x0, normals, ys, weights, xi, out, C, W, N,
-                         lam, stream);
-}
+SGMCMC_FUSED_WINDOW_ENTRY(svm, SvmBody)
+SGMCMC_FUSED_WINDOW_ENTRY(lgssm_optimal, LgssmOptimalBody)
+SGMCMC_FUSED_WINDOW_ENTRY(lgssm_prior, LgssmPriorBody)
 
 const char* sgmcmc_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -73,9 +73,20 @@ class Sampler:
             partition_style=kwargs.get("partition_style", "uniform"),
             ess_threshold=kwargs.get("ess_threshold", None),
             bw_chunk=kwargs.get("bw_chunk", None),
+            rng=kwargs.get("rng", "host"),
         )
 
-    def _grad_fn(self, **kwargs):
+    def _grad_fn(self, kind: str | None = None, **kwargs):
+        """The noisy-gradient function of the particle-filter score
+        (``kind=None`` or ``"pf"``).  The JAX package's exact message
+        passing kinds are not ported yet and raise."""
+        if kind in ("marginal", "complete"):
+            raise NotImplementedError(
+                f"kind={kind!r} (the exact message-passing score) is not "
+                "ported yet (ROADMAP.md, Queue 1 item 12); the port runs "
+                "kind='pf'")
+        if kind not in (None, "pf"):
+            raise ValueError(f"Unrecognized kind = '{kind}'")
         m = self.model
         cfg = self._score_config(**kwargs)
         kernel_name = kwargs.get("kernel")
@@ -187,3 +198,11 @@ class Sampler:
 class SVMSampler(Sampler):
     def __init__(self, observations=None, **kw):
         super().__init__("svm", observations, **kw)
+
+
+class LGSSMSampler(Sampler):
+    """Scalar linear-Gaussian state-space model (n = m = 1).  The JAX
+    package's Gibbs mixin is not ported yet (ROADMAP.md, Queue 1 item
+    12)."""
+    def __init__(self, observations=None, **kw):
+        super().__init__("lgssm", observations, **kw)

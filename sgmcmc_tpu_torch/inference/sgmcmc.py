@@ -5,9 +5,10 @@ functions act on C chains at once (parameters with a leading chain axis)
 and draw from an explicit ``torch.Generator``; the iteration loop is host
 Python.  For CUDA tensors the score runs the whole window in the fused
 CUDA kernel when the smoother is ``poyiadjis_N`` or ``nemeth`` with
-systematic resampling and no ESS gate; every other configuration, and
-every configuration on the CPU, runs ``run_buffered_pf``, whose window
-steps launch the resample-apply kernel for CUDA tensors.
+systematic resampling (with or without the ESS gate); every other
+configuration, and every configuration on the CPU, runs
+``run_buffered_pf``, whose window steps launch the resample-apply kernel
+for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -21,8 +22,11 @@ from torch import nn
 from ..models.base import ParticleKernel, StatisticFn, params_map
 from ..ops.buffered import run_buffered_pf, window_weights
 from ..ops.cuda.fused_pf import fused_pf_score
+from ..ops.cuda.philox import STREAM_INIT, philox_normals
 from ..ops.subsequence import (buffered_window, sample_start, slice_window,
                                window_length)
+
+RNG_MODES = ("host", "kernel")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,24 +49,38 @@ class PFScoreConfig:
     # row-block size of the poyiadjis_N2 backward weights (None: dense up
     # to N=8192)
     bw_chunk: int | None = None
+    # 'kernel' generates the fused window's normals on the card from one
+    # Philox seed per chain row (the proposal normals inside the kernel,
+    # the initial-state normals with the standalone generator) instead of
+    # drawing [R, W, Z, N] normals with the torch generator.  As in the JAX
+    # package it only affects the fused route; the unfused path and the
+    # CPU ignore it.
+    rng: str = "host"
+
+    def __post_init__(self):
+        if self.rng not in RNG_MODES:
+            raise ValueError(f"rng={self.rng!r} must be one of {RNG_MODES}")
 
 
 def _fused_eligible(config: PFScoreConfig, fused_model) -> bool:
     """The fused window kernel handles the systematic-resampled Nemeth /
-    Poyiadjis-O(N) smoothers of models that provide a FusedModel."""
+    Poyiadjis-O(N) smoothers (with or without the ESS gate) of models that
+    provide a FusedModel."""
     return (fused_model is not None
             and config.smoother in ("poyiadjis_N", "nemeth")
-            and config.resampler == "systematic"
-            and config.ess_threshold is None)
+            and config.resampler == "systematic")
 
 
 class WindowDraws(NamedTuple):
     """Randomness of one score evaluation, R = chains x minibatch rows."""
     start: torch.Tensor     # [R] int64 subsequence starts
     z0: torch.Tensor        # [R, Z, N] initial-state normals
-    normals: torch.Tensor   # [R, W, Z, N] proposal normals
+    # [R, W, Z, N] proposal normals; None when the kernel generates them
+    normals: torch.Tensor | None
     # resampling uniforms in [0, 1): [R, W] systematic, else [R, W, N]
     u: torch.Tensor
+    # [R] int64 Philox seeds of the in-kernel normals (rng='kernel')
+    seeds: torch.Tensor | None = None
 
 
 class PFScore(nn.Module):
@@ -90,8 +108,17 @@ class PFScore(nn.Module):
         self.fused_lambduh = (1.0 if config.smoother == "poyiadjis_N"
                               else config.lambduh)
 
+    def uses_fused(self, device) -> bool:
+        """Whether the score runs the fused window kernel on ``device``."""
+        return (torch.device(device).type == "cuda"
+                and _fused_eligible(self.config, self.fused_model))
+
     def draw(self, generator: torch.Generator, num_chains: int,
              device) -> WindowDraws:
+        """The score's draws.  With ``rng='kernel'`` on the fused route no
+        ``[R, W, Z, N]`` normals are allocated: each row gets a Philox seed,
+        whose stream 1 gives the initial-state normals and stream 0 the
+        proposal normals inside the kernel."""
         cfg = self.config
         R = num_chains * cfg.minibatch_size
         N, W, Z = cfg.n_particles, self.W, self.kernel.noise_dim
@@ -100,12 +127,20 @@ class PFScore(nn.Module):
         else:
             start = sample_start(generator, cfg.subsequence_length, self.T,
                                  R, cfg.partition_style, device)
-        z0 = torch.randn((R, Z, N), generator=generator, device=device)
-        normals = torch.randn((R, W, Z, N), generator=generator,
-                              device=device)
+        if cfg.rng == "kernel" and self.uses_fused(device):
+            seeds = torch.randint(-2 ** 63, 2 ** 63 - 1, (R,),
+                                  generator=generator, dtype=torch.int64,
+                                  device=device)
+            z0 = philox_normals(seeds, 1, Z, N, stream=STREAM_INIT)[:, 0]
+            normals = None
+        else:
+            seeds = None
+            z0 = torch.randn((R, Z, N), generator=generator, device=device)
+            normals = torch.randn((R, W, Z, N), generator=generator,
+                                  device=device)
         u_shape = (R, W) if cfg.resampler == "systematic" else (R, W, N)
         u = torch.rand(u_shape, generator=generator, device=device)
-        return WindowDraws(start, z0, normals, u)
+        return WindowDraws(start, z0, normals, u, seeds)
 
     def forward(self, generator, params, observations: torch.Tensor,
                 draws: WindowDraws | None = None):
@@ -133,10 +168,11 @@ class PFScore(nn.Module):
             pv = torch.full((R,), 10.0, dtype=dt, device=dev)
         else:
             pm, pv = self.prior_mean_var_fn(rows)
-        if dev.type == "cuda" and _fused_eligible(cfg, self.fused_model):
+        if self.uses_fused(dev):
             stat, ll = fused_pf_score(
                 self.fused_model, rows, window[..., 0], step_w, draws.z0,
-                draws.normals, draws.u, pm, pv, self.fused_lambduh)
+                draws.normals, draws.u, pm, pv, self.fused_lambduh,
+                cfg.ess_threshold, draws.seeds)
         else:
             out = run_buffered_pf(
                 self.kernel, self.stat_fn, rows, window, z0=draws.z0,

@@ -1,5 +1,6 @@
 """Uniform model adapter (counterpart of ``sgmcmc_tpu/models/registry.py``,
-with the fields buffered-PF SGLD reads and the SVM entry only)."""
+with the fields buffered-PF SGLD reads and the SVM and scalar LGSSM
+entries)."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,6 +8,7 @@ from typing import Callable
 
 import torch
 
+from . import lgssm as lgssm_mod
 from . import svm as svm_mod
 
 
@@ -45,7 +47,36 @@ SVM = ModelAPI(
 )
 
 
-def get_model(name: str) -> ModelAPI:
-    if name == "svm":
+LGSSM = ModelAPI(
+    name="lgssm_1_1",
+    get_kernel=lgssm_mod.get_kernel,
+    grad_statistic=lgssm_mod.grad_statistic,
+    grad_statistic_dim=lgssm_mod.STATISTIC_DIM,
+    unpack_grad=lgssm_mod.unpack_grad,
+    default_prior=lgssm_mod.default_prior,
+    logprior=lgssm_mod.logprior,
+    grad_logprior=lgssm_mod.grad_logprior,
+    sample_prior=lgssm_mod.sample_prior,
+    project_parameters=lgssm_mod.project_parameters,
+    generate_data=lgssm_mod.generate_data,
+    # the JAX package's (0, 10 I) initial-state prior, per chain
+    prior_mean_var=lambda p: (torch.zeros_like(p.a),
+                              torch.full_like(p.a, 10.0)),
+    get_fused=lgssm_mod.get_fused,
+)
+
+
+def get_model(name: str, **kwargs) -> ModelAPI:
+    """The model adapter ``name``; the LGSSM takes ``n`` and ``m``, of
+    which only the scalar model (n = m = 1) is ported."""
+    if name == "svm" and not kwargs:
         return SVM
-    raise NotImplementedError(f"model '{name}' is not ported yet")
+    if name == "lgssm" and set(kwargs) <= {"n", "m"}:
+        n, m = kwargs.get("n", 1), kwargs.get("m", 1)
+        if (n, m) == (1, 1):
+            return LGSSM
+        raise NotImplementedError(
+            f"lgssm with n={n}, m={m} is not ported yet: the port has the "
+            "scalar model (n = m = 1)")
+    raise NotImplementedError(f"model '{name}' with {kwargs} is not ported "
+                              "yet")

@@ -9,6 +9,13 @@ log-likelihood) runs in one launch of the kernel in
 and runs ``fused_window_reference``, the same function in plain PyTorch,
 for CPU tensors.
 
+Two options of the TPU kernel come with it: proposal normals generated
+inside the kernel from a per-chain seed (the JAX package's
+``rng="kernel"``; here the Philox generator of ``ops/cuda/philox.py``)
+instead of a ``[C, W, Z, N]`` array, and the ESS gate
+(``ess_threshold``), under which a chain resamples only at steps whose
+effective sample size falls below ``ess_threshold * N``.
+
 The kernel library is built at first use by ``ops/cuda/build.py`` and
 bound with ``ctypes``.
 """
@@ -22,10 +29,11 @@ from typing import Callable
 import torch
 
 from .build import SMEM_LIMIT, check_launch, load_library
+from .philox import philox_normals_reference
 from .resample import ancestors, cdf_parts
 
 # model bodies with an entry point in the library (FusedModel.body)
-_BODIES = ("svm",)
+_BODIES = ("svm", "lgssm_optimal", "lgssm_prior")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +69,8 @@ def _library() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     for body in _BODIES:
         fn = getattr(lib, f"sgmcmc_fused_window_{body}")
-        fn.argtypes = [P, P, P, P, P, P, P, I, I, I, ctypes.c_float, P]
+        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, ctypes.c_float,
+                       ctypes.c_double, P]
         fn.restype = I
         smem = getattr(lib, f"sgmcmc_fused_window_{body}_smem")
         smem.argtypes = [I, I]
@@ -69,20 +78,26 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(model, pvec, x0, normals, ys, weights, xi):
+def _check_inputs(model, pvec, x0, normals, seeds, ys, weights, xi):
     C, W = ys.shape
     D, Z, P = model.n_state, model.noise_dims, model.n_param
     N = x0.shape[-1]
+    if (normals is None) == (seeds is None):
+        raise ValueError("pass exactly one of normals (host normals) and "
+                         "seeds (in-kernel normals)")
     want = {"pvec": (C, P), "x0": (C, D, N), "normals": (C, W, Z, N),
-            "ys": (C, W), "weights": (C, W), "xi": (C, W)}
-    got = {"pvec": pvec, "x0": x0, "normals": normals, "ys": ys,
-           "weights": weights, "xi": xi}
+            "seeds": (C,), "ys": (C, W), "weights": (C, W), "xi": (C, W)}
+    got = {"pvec": pvec, "x0": x0, "normals": normals, "seeds": seeds,
+           "ys": ys, "weights": weights, "xi": xi}
     for name, t in got.items():
+        if t is None:
+            continue
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {want[name]}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        dtype = torch.int64 if name == "seeds" else torch.float32
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if t.device != x0.device:
             raise ValueError(f"{name} is on {t.device}, x0 on {x0.device}")
         if not t.is_contiguous():
@@ -93,23 +108,29 @@ def _check_inputs(model, pvec, x0, normals, ys, weights, xi):
 
 
 def fused_window(model: FusedModel, pvec: torch.Tensor, x0: torch.Tensor,
-                 normals: torch.Tensor, ys: torch.Tensor,
+                 normals: torch.Tensor | None, ys: torch.Tensor,
                  weights: torch.Tensor, xi: torch.Tensor,
-                 lambduh: float = 1.0) -> torch.Tensor:
+                 lambduh: float = 1.0, ess_threshold: float | None = None,
+                 seeds: torch.Tensor | None = None) -> torch.Tensor:
     """Run the fused window for a batch of chains: ``[C, H+1]``, the
     weight-averaged statistic then the log-likelihood.
 
-    Inputs: ``pvec [C, P]``, ``x0 [C, D, N]``, ``normals [C, W, Z, N]``
-    (particle j in natural order), ``ys``, ``weights`` and the systematic
-    offsets ``xi``, each ``[C, W]``; all float32 and contiguous.  CUDA
-    tensors launch the kernel on the current stream (no synchronisation)
-    and count one in ``fused_window.launches``; CPU tensors run
-    :func:`fused_window_reference`.
+    Inputs: ``pvec [C, P]``, ``x0 [C, D, N]``, the proposal normals
+    ``normals [C, W, Z, N]`` (particle j in natural order) or, for normals
+    generated inside the kernel, ``seeds [C]`` int64 with ``normals=None``
+    (the draws of :func:`~.philox.philox_normals` of stream 0), ``ys``,
+    ``weights`` and the systematic offsets ``xi``, each ``[C, W]``; all
+    float32 except the seeds, and contiguous.  ``ess_threshold`` turns on
+    the ESS gate.  CUDA tensors launch the kernel on the current stream (no
+    synchronisation) and count one in ``fused_window.launches``; CPU tensors
+    run :func:`fused_window_reference`.
     """
-    _check_inputs(model, pvec, x0, normals, ys, weights, xi)
+    _check_inputs(model, pvec, x0, normals, seeds, ys, weights, xi)
+    if ess_threshold is not None and ess_threshold < 0:
+        raise ValueError(f"ess_threshold={ess_threshold} must be >= 0")
     if x0.device.type == "cpu":
         return fused_window_reference(model, pvec, x0, normals, ys, weights,
-                                      xi, lambduh)
+                                      xi, lambduh, ess_threshold, seeds)
     if x0.device.type != "cuda":
         raise ValueError(f"no fused window for device {x0.device}")
     C, W = ys.shape
@@ -123,12 +144,15 @@ def fused_window(model: FusedModel, pvec: torch.Tensor, x0: torch.Tensor,
     entry = getattr(lib, f"sgmcmc_fused_window_{model.body}")
     out = torch.empty((C, model.n_stat + 1), dtype=torch.float32,
                       device=x0.device)
+    thr = -1.0 if ess_threshold is None else float(ess_threshold)
     # the library's runtime launches on the thread's current device
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = entry(pvec.data_ptr(), x0.data_ptr(), normals.data_ptr(),
+        rc = entry(pvec.data_ptr(), x0.data_ptr(),
+                   None if normals is None else normals.data_ptr(),
+                   None if seeds is None else seeds.data_ptr(),
                    ys.data_ptr(), weights.data_ptr(), xi.data_ptr(),
-                   out.data_ptr(), C, W, N, float(lambduh), stream)
+                   out.data_ptr(), C, W, N, float(lambduh), thr, stream)
     check_launch(rc, "fused window")
     fused_window.launches += 1
     return out
@@ -150,14 +174,20 @@ def _ll_increment(m, tot, ok, log_n):
 
 
 def fused_window_reference(model: FusedModel, pvec, x0, normals, ys,
-                           weights, xi, lambduh: float = 1.0):
+                           weights, xi, lambduh: float = 1.0,
+                           ess_threshold: float | None = None, seeds=None):
     """Plain-PyTorch version of the fused window kernel (same inputs and
     output as :func:`fused_window`), step by step in the kernel's order:
     float64 prefix sum (``torch.cumsum``), ancestors by
-    ``torch.searchsorted(right=True)``, gathers by ``torch.gather``."""
+    ``torch.searchsorted(right=True)``, gathers by ``torch.gather``.  With
+    ``seeds`` each step's normals come from
+    :func:`~.philox.philox_normals_reference` (stream 0, the kernel's
+    layout).  The ESS gate follows the JAX package's fused kernel: the sums
+    of w and w^2 in float64, and the carried log-weights
+    ``log w - m - log tot + log N`` of a chain that does not resample."""
     C, D, N = x0.shape
     W = ys.shape[1]
-    H = model.n_stat
+    H, Z = model.n_stat, model.noise_dims
     dt, dev = x0.dtype, x0.device
     pv = [pvec[:, i:i + 1] for i in range(model.n_param)]
     V = torch.cat([x0, torch.zeros((C, H, N), dtype=dt, device=dev)], 1)
@@ -166,6 +196,7 @@ def fused_window_reference(model: FusedModel, pvec, x0, normals, ys,
     n_t = torch.full((), float(N), dtype=dt, device=dev)
     log_n = torch.log(n_t)
     j = torch.arange(N, dtype=dt, device=dev)
+    own = torch.arange(N, device=dev)
     lam = torch.full((), lambduh, dtype=dt, device=dev)
     om = 1.0 - lam
     for t in range(W):
@@ -175,12 +206,22 @@ def fused_window_reference(model: FusedModel, pvec, x0, normals, ys,
         if lambduh != 1.0:
             S_bar = _weighted_mean(V[:, D:], w, tot, ok, n_t)     # [C, H]
         idx = ancestors((j + xi[:, t:t + 1]) / n_t, cdf)         # [C, N]
+        if ess_threshold is not None:
+            sumsq = (w.double() ** 2).sum(-1, keepdim=True)
+            ess = tot * tot / torch.where(sumsq > 0, sumsq, 1.0)
+            do_res = ~ok | (ess < ess_threshold * N)              # [C, 1]
+            idx = torch.where(do_res, idx, own)
+            carried = logw - m - torch.log(tot.to(dt)) + log_n
         Vr = torch.gather(V, 2, idx[:, None, :].expand(-1, D + H, -1))
         xr = list(Vr[:, :D].unbind(1))
-        z = list(normals[:, t].unbind(1))
+        z_t = (normals[:, t] if seeds is None else philox_normals_reference(
+            seeds, 1, Z, N, t0=t)[:, 0])                         # [C, Z, N]
+        z = list(z_t.unbind(1))
         y_t = ys[:, t:t + 1]
         x_new = model.propose(pv, z, xr, y_t)
         logw = model.reweight(pv, xr, x_new, y_t)
+        if ess_threshold is not None:
+            logw = logw + torch.where(do_res, 0.0, carried)
         h = torch.stack(model.stat(pv, xr, x_new, y_t), 1)      # [C, H, N]
         w_t = weights[:, t, None, None]
         if lambduh == 1.0:
@@ -196,17 +237,21 @@ def fused_window_reference(model: FusedModel, pvec, x0, normals, ys,
 
 def fused_pf_score(model: FusedModel, params, window: torch.Tensor,
                    step_weights: torch.Tensor, z0: torch.Tensor,
-                   normals: torch.Tensor, xi: torch.Tensor,
+                   normals: torch.Tensor | None, xi: torch.Tensor,
                    prior_mean: torch.Tensor, prior_var: torch.Tensor,
-                   lambduh: float = 1.0):
+                   lambduh: float = 1.0, ess_threshold: float | None = None,
+                   seeds: torch.Tensor | None = None):
     """Chain-batched fused buffered-PF score: ``(mean_stat [C, H],
     loglik [C])`` for windows ``[C, W]`` with the draws ``z0 [C, Z, N]``,
-    ``normals [C, W, Z, N]`` and ``xi [C, W]``; the initial state is
-    ``prior_mean + sqrt(prior_var) * z0`` per chain."""
+    ``xi [C, W]`` and either ``normals [C, W, Z, N]`` or, for normals
+    generated in the kernel, ``seeds [C]`` (``normals=None``); the initial
+    state is ``prior_mean + sqrt(prior_var) * z0`` per chain."""
     D, H = model.n_state, model.n_stat
     x0 = (prior_mean[:, None, None]
           + torch.sqrt(prior_var)[:, None, None] * z0[:, :D]).contiguous()
     out = fused_window(model, model.pack_params(params).contiguous(), x0,
-                       normals.contiguous(), window.contiguous(),
-                       step_weights.contiguous(), xi.contiguous(), lambduh)
+                       None if normals is None else normals.contiguous(),
+                       window.contiguous(), step_weights.contiguous(),
+                       xi.contiguous(), lambduh, ess_threshold,
+                       None if seeds is None else seeds.contiguous())
     return out[:, :H], out[:, H]

@@ -27,3 +27,20 @@ def tril_vector_to_mat(vec: torch.Tensor) -> torch.Tensor:
     mat = vec.new_zeros(vec.shape[:-1] + (n, n))
     mat[..., torch.as_tensor(rows), torch.as_tensor(cols)] = vec
     return mat
+
+
+def mat_to_tril_vector(mat: torch.Tensor) -> torch.Tensor:
+    """Pack the lower triangle of [..., n, n] row-major into [..., d]."""
+    rows, cols = np.tril_indices(mat.shape[-1])
+    return mat[..., torch.as_tensor(rows), torch.as_tensor(cols)]
+
+
+def spectral_norm_projection(A: torch.Tensor,
+                             threshold: float = 0.9999) -> torch.Tensor:
+    """The JAX package's VAR-stability projection of [..., n, n] matrices
+    to spectral norm <= threshold, for n = 1 (the ported scalar models): a
+    clip of A to [-threshold, threshold]."""
+    if A.shape[-1] != 1:
+        raise NotImplementedError("spectral_norm_projection is ported for "
+                                  "1 x 1 matrices only")
+    return torch.clamp(A, -threshold, threshold)

@@ -166,6 +166,7 @@ def test_library_builds_every_kernel_source():
     """One library from every csrc/*.cu, named by a hash of the sources;
     the sources ship with the package, so an installed port can build."""
     assert [p.name for p in build.sources()] == ["fused_window.cu",
+                                                 "philox_normals.cu",
                                                  "resample_apply.cu"]
     assert build.library_path().parent == build.BUILD_DIR
     pyproject = Path(__file__).resolve().parents[1] / "pyproject.toml"
