@@ -22,10 +22,11 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      card, which must agree bitwise, at the shapes the TPU kernels it
      replaces ran (K2b: C=8192, N=1024, K=4; K3: C=8192, N=1000, K=4; K2a:
      C=1, N=1024, K=4), at K=1, at the LGSSM default path's K=5 (state and
-     4-wide statistic), at an N beyond its shared-memory CDF and on
+     4-wide statistic), at the GARCH / SVJM default paths' K=6 (N=1000
+     and 1024), at an N beyond its shared-memory CDF and on
      degenerate weights; then the kernel and its plain version, which is
      the PyTorch call ``torch.searchsorted`` + ``torch.gather``, timed at
-     the first three;
+     the first three and at K=6;
   7. the default path: ``SVMSampler(observations=ys).fit_scan("SGLD", ...)``
      with the JAX package's defaults (no device argument: the card;
      multinomial resampling, Poyiadjis O(N)), 8192 chains, S=40, B=10, at
@@ -62,7 +63,31 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      ``LGSSMSampler.fit_scan`` at 8192 chains, N=1024, S=40, B=10, T=1000:
      systematic with in-kernel normals for the optimal and the prior
      kernel (K1 only) and the default multinomial resampler (the
-     resample-apply kernel only); parameter recovery from A=0.5 toward 0.9.
+     resample-apply kernel only); parameter recovery from A=0.5 toward 0.9;
+ 15. GARCH and SVJM on K1: the garch_optimal, garch_prior and svjm bodies
+     against their plain versions, bitwise (max |kernel - plain| = 0), with
+     host and in-kernel normals at C=256 and at the fits' shape (C=8192,
+     N=1024, W=60); then each timed there;
+ 16. GARCH and SVJM fits: ``GARCHSampler`` / ``SVJMSampler.fit_scan`` at
+     8192 chains, N=1024, S=40, B=10, T=1000, systematic (K1 only:
+     optimal and prior with in-kernel normals, optimal with host normals;
+     SVJM with both) and the default multinomial resampler at N=1000 and
+     N=1024 (the resample-apply kernel only, at K = D + H = 6); the fused
+     score against the unfused one over 1024 chains (|z| < 5 per
+     component); the SVJM score at pJ = 1e-6 against the SVM's on the same
+     first normals (|z| < 5 for the shared components);
+ 17. the valid gate and the Seq samplers: K1 with ``vs`` against its plain
+     version, bitwise, at C=8192 on buffered windows (W=60) with padded
+     tails; K1 on the inputs the Seq score builds for each Seq fit below
+     (SGLD setting: 8192 rows, W=24, for the svm, garch_optimal and svjm
+     bodies; LD setting: 1024 chains x 8 sequences, W = T_max, with the
+     valid gate), bitwise, then timed and bounded there; padding
+     invariance of the Seq score on both routes (bitwise);
+     ``SeqSVMSampler`` / ``SeqGARCHSampler`` / ``SeqSVJMSampler.fit_scan``
+     at 8192 chains on 8 sequences of 200-1000 steps with the
+     exchange-rate demo's SGLD setting (S=16, B=4, one sequence per
+     gradient) and ``SeqSVMSampler`` at 1024 chains with its LD setting
+     (S=-1, every sequence: K1 with the valid gate).
 The last three lines are the kernel report (JSON), the card's
 ``nvidia-smi`` name and power limit, and the result (JSON).
 Exits non-zero without a result when no CUDA device is available.
@@ -81,7 +106,7 @@ ITERS = 20
 # outside the tensor cores.
 HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
 # Scalar operations of K1 per particle and window step, counted in
-# csrc/fused_window.cu and csrc/svm_body.cuh (max, exp-shift, prefix sum,
+# csrc/fused_window.cuh and csrc/svm_body.cuh (max, exp-shift, prefix sum,
 # position, ~11 search compares, propose 3, reweight 14, statistic 18,
 # update 6; the few float64 ones counted at the float32 rate).
 K1_OPS = 60
@@ -93,7 +118,16 @@ K1_OPS = 60
 # ESS gate (w^2, its sum, the carried weight: 5).
 K1_BODY_OPS = {"svm": 35, "lgssm_optimal": 49, "lgssm_prior": 30}
 K1_FRAME_OPS = K1_OPS - K1_BODY_OPS["svm"]
+# Of the frame, parts 1-2 run on every step (max 1, exp-shift 2, prefix
+# sum and CDF 3); position 2, search 11 and update 6 run in part 4, which
+# a step the valid gate turns off skips with the body and the normals.
+K1_STEP_OPS = 6
 RNG_OPS, ESS_OPS = 49 + 14, 5
+# The GARCH and SVJM bodies (csrc/garch_body.cuh: optimal propose 19,
+# reweight 10, statistic 30; prior 12, 9, 30; csrc/svjm_body.cuh: propose
+# 11, reweight 14, statistic 70), each with 2 more update operations per
+# statistic beyond the SVM's three.
+K1_BODY_OPS.update(garch_optimal=61, garch_prior=53, svjm=99)
 # Operations of the standalone generator per pair of normals (see
 # csrc/philox_normals.cu).
 PHILOX_PAIR_OPS = 98 + 2 * 14
@@ -149,11 +183,15 @@ def bound_ms(nbytes, ops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_ops(C, body, rng=False, ess=False):
-    """Operations of one K1 call over C chains of the benchmark window."""
-    per = (K1_FRAME_OPS + K1_BODY_OPS[body] + (RNG_OPS if rng else 0)
-           + (ESS_OPS if ess else 0))
-    return C * W * N * per
+def k1_ops(C, body, rng=False, ess=False, Z=1, steps=W, active=None):
+    """Operations of one K1 call over C chains of a ``steps``-step window
+    (Z normals per particle and step), of which ``active`` chain-steps
+    (default: all) run part 4; the others run parts 1-2 only."""
+    every = K1_STEP_OPS + (ESS_OPS if ess else 0)
+    part4 = (K1_FRAME_OPS - K1_STEP_OPS + K1_BODY_OPS[body]
+             + (Z * RNG_OPS if rng else 0))
+    active = C * steps if active is None else active
+    return N * (C * steps * every + active * part4)
 
 
 def reset_counts(fused_pf, resample, philox=None):
@@ -197,6 +235,12 @@ def main():
     phase("2 build", f"{build_s:.2f} s, sources "
           f"{[p.name for p in build.sources()]} -> "
           f"{build.library_path().name}; " + " | ".join(ptxas))
+    lines = log.read_text().splitlines() if log.exists() else []
+    spills = [f"{lines[i - 1].split()[-1]}: {ln.strip()}"
+              for i, ln in enumerate(lines) if "spill stores" in ln
+              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    phase("2 build", f"functions that spill registers: {len(spills)}"
+          + "".join(f" | {ln}" for ln in spills))
 
     # 3. K1 vs plain version on the card
     dev = torch.device("cuda")
@@ -308,6 +352,8 @@ def main():
     cases = [("K2b", 8192, 1024, 4, False), ("K3", 8192, 1000, 4, False),
              ("K2a", 1, 1024, 4, False), ("K=1", 8192, 1024, 1, False),
              ("LGSSM default", 8192, 1024, 5, False),
+             ("GARCH/SVJM default N=1024", 8192, 1024, 6, False),
+             ("GARCH/SVJM default N=1000", 8192, 1000, 6, False),
              ("N>shared", 16, 131072, 1, False),
              ("degenerate", 64, 1024, 4, True)]
     if not 131072 > shared_n:
@@ -324,7 +370,7 @@ def main():
         ra_err = max(ra_err, err)
         msg = (f"{label}: C={C} N={n_part} K={K}: max |kernel - plain| = "
                f"{err!r}, bitwise equal {same}")
-        if label in ("K2b", "K3", "K2a"):
+        if label in ("K2b", "K3", "K2a") or K == 6:
             reps = 200 if C == 1 else 50
             ms = cuda_ms(lambda: resample.resample_apply(pos, cdf, vals),
                          reps)
@@ -428,6 +474,8 @@ def main():
     for label, sd, shape, stream in (
             ("K4 shape", seeds_k4, (256, 1, 512), philox.STREAM_PROPOSAL),
             ("initial-state draw", seeds_main, (1, 1, N),
+             philox.STREAM_INIT),
+            ("SVJM initial-state draw, Z=2", seeds_main, (1, 2, N),
              philox.STREAM_INIT)):
         words_k = philox.philox_words(sd, *shape, stream=stream)
         words_r = philox.philox_words_reference(sd, *shape, stream=stream)
@@ -737,32 +785,426 @@ def main():
     if not abs(a_mean - 0.9) < abs(a_mean - 0.5):
         raise AssertionError(f"A did not move toward 0.9: {a_mean}")
 
+    # 15. GARCH and SVJM on K1
+    from sgmcmc_tpu_torch.inference import samplers
+    from sgmcmc_tpu_torch.models import garch, svjm
+    garch_truth = garch.from_alpha_beta_gamma(0.1, 0.6, 0.2, 0.5, device=dev)
+    svjm_truth = svjm.from_scalars(0.9, 0.5, 1.0, 0.1, 2.0, device=dev)
+    ys_g, _ = garch.generate_data(gen, garch_truth, T)
+    ys_j, _ = svjm.generate_data(gen, svjm_truth, T)
+
+    def random_params(mod, C):
+        """Parameters of C chains around the models' test truths."""
+        u = torch.rand((C, 5), generator=gen, device=dev)
+        if mod is garch:
+            return garch.GARCHParams(
+                log_mu=torch.log(0.2 + 0.8 * u[:, 0:1]),
+                logit_phi=torch.logit(0.5 + 0.4 * u[:, 1:2]),
+                logit_lambduh=torch.logit(0.1 + 0.4 * u[:, 2:3]),
+                LRinv_vec=(0.5 + 1.5 * u[:, 3:4]) ** -0.5)
+        sv = dict(A=(0.5 + 0.45 * u[:, 0]).reshape(C, 1, 1),
+                  LQinv_vec=(0.3 + 1.2 * u[:, 1:2]) ** -0.5,
+                  LRinv_vec=(0.5 + 1.5 * u[:, 2:3]) ** -0.5)
+        if mod is svm:
+            return svm.SVMParams(**sv)
+        return svjm.SVJMParams(
+            **sv, logit_pJ=torch.logit(0.02 + 0.28 * u[:, 3:4]),
+            LQJinv_vec=(0.5 + 2.0 * u[:, 4:5]) ** -0.5)
+
+    def body_inputs(mod, model, ys_m, C, seeded):
+        """K1 inputs of C chains of a GARCH or SVJM body on random windows
+        of ys_m (x0 from the model's init hook and its stationary prior),
+        and the seeds of in-kernel normals or None."""
+        params = random_params(mod, C)
+        start = subsequence.sample_start(gen, S, T, C, device=dev)
+        win = subsequence.buffered_window(start, S, B, T)
+        window = subsequence.slice_window(ys_m, win.window_start, W)[..., 0]
+        step_w, _ = buffered.window_weights(win.t1, win.tL, win.weights, W)
+        Z = model.noise_dims
+        var = mod.stationary_variance(params)
+        x0 = fused_pf.initial_state(
+            model, torch.randn((C, Z, N), generator=gen, device=dev),
+            torch.zeros_like(var), var)
+        xi = torch.rand((C, W), generator=gen, device=dev)
+        normals = None if seeded else torch.randn(
+            (C, W, Z, N), generator=gen, device=dev)
+        sd = torch.randint(-2 ** 63, 2 ** 63 - 1, (C,), generator=gen,
+                           dtype=torch.int64, device=dev) if seeded else None
+        return (model.pack_params(params).contiguous(), x0.contiguous(),
+                normals, window.contiguous(), step_w.contiguous(), xi), sd
+
+    def check_exact(model, args, sd, tag, what, vs=None):
+        """K1 against its plain version, bitwise: (max |kernel - plain|,
+        the plain version's time in ms)."""
+        out_k = fused_pf.fused_window(model, *args, seeds=sd, vs=vs)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        out_r = fused_pf.fused_window_reference(model, *args, seeds=sd,
+                                                vs=vs)
+        end.record()
+        torch.cuda.synchronize()
+        check_finite(f"the K1 output {what}", out_k, out_r)
+        err = float((out_k - out_r).abs().max())
+        n_diff = int((out_k != out_r).any(1).sum())
+        C, Wc = args[3].shape
+        phase(tag, f"{what}C={C} N={N} W={Wc}: max |kernel - plain| = "
+              f"{err!r}, chains that differ {n_diff}")
+        if n_diff:
+            raise AssertionError(f"K1 {what}differs from its plain version "
+                                 f"in {n_diff} chains")
+        return err, start.elapsed_time(end)
+
+    def k1_bytes(model, args, sd):
+        return (4 * (sum(a.numel() for a in args if a is not None)
+                     + args[0].shape[0] * (model.n_stat + 1))
+                + (0 if sd is None else 8 * sd.numel()))
+
+    new_k1 = {}
+    for body, mod, model, ys_m in (
+            ("garch_optimal", garch, garch.FUSED, ys_g),
+            ("garch_prior", garch, garch.FUSED_PRIOR, ys_g),
+            ("svjm", svjm, svjm.FUSED, ys_j)):
+        for seeded in (False, True):
+            what = (f"{body}, " + ("in-kernel" if seeded else "host")
+                    + " normals, ")
+            err = 0.0
+            for C in (C_CHECK, C_BENCH):
+                args, sd = body_inputs(mod, model, ys_m, C, seeded)
+                e, plain = check_exact(model, args, sd, "15 K1 bodies", what)
+                err = max(err, e)
+            ms = cuda_ms(lambda: fused_pf.fused_window(model, *args,
+                                                       seeds=sd), 5)
+            nbytes = k1_bytes(model, args, sd)
+            bnd, by = bound_ms(nbytes, k1_ops(C_BENCH, body, rng=seeded,
+                                              Z=model.noise_dims))
+            smem = getattr(fused_pf._library(),
+                           f"sgmcmc_fused_window_{body}_smem")(W, N, 0)
+            name_k = body + ("_rng_kernel" if seeded else "")
+            new_k1[name_k] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                  bound_ms=bnd, bound_by=by)
+            phase("15 K1 bodies", f"{what}one window call C={C_BENCH} "
+                  f"N={N} W={W}: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+                  f"bound {bnd:.3f} ms by {by} ({nbytes / 1e6:.1f} MB); "
+                  f"{smem} bytes of shared memory a block (above 48 KB: "
+                  f"launched after cudaFuncSetAttribute) ({card})")
+            del args
+
+    # 16. GARCH and SVJM fits
+    new_launches = {}
+
+    def fit_pair(cls, ys_m, start_params, expect, label, C=C_BENCH,
+                 **fkw):
+        """A 2-iteration warm-up, then ITERS timed iterations."""
+        smp = cls(observations=ys_m, seed=12)
+        smp.parameters = start_params
+        run_fit(smp, tuple(2 * e // ITERS for e in expect), 2, C=C, **fkw)
+        dt, launches, peak = run_fit(smp, expect, C=C, **fkw)
+        phase(label, f"{cls.__name__}.fit_scan SGLD {fkw} C={C}: {ITERS} "
+              f"iterations in {dt:.3f} s, (K1, resample-apply, Philox) "
+              f"launches {launches}, {C * ITERS / dt:.1f} aggregate "
+              f"steps/s, peak {peak / 2 ** 30:.3f} GiB ({card})")
+        return launches
+
+    fkw = dict(N=N, subsequence_length=S, buffer_length=B,
+               resampler="systematic")
+    garch_start = garch.from_alpha_beta_gamma(0.2, 0.3, 0.3, 1.0)
+    svjm_start = svjm.from_scalars(0.5, 1.0, 2.0, 0.05, 1.0)
+    for name_k, cls, ys_m, start_p, kw_k, expect in (
+            ("garch_optimal_rng_kernel", samplers.GARCHSampler, ys_g,
+             garch_start, dict(rng="kernel"), (ITERS, 0, ITERS)),
+            ("garch_prior_rng_kernel", samplers.GARCHSampler, ys_g,
+             garch_start, dict(rng="kernel", kernel="prior"),
+             (ITERS, 0, ITERS)),
+            ("garch_optimal", samplers.GARCHSampler, ys_g, garch_start,
+             dict(rng="host"), (ITERS, 0, 0)),
+            ("svjm_rng_kernel", samplers.SVJMSampler, ys_j, svjm_start,
+             dict(rng="kernel"), (ITERS, 0, ITERS)),
+            ("svjm", samplers.SVJMSampler, ys_j, svjm_start,
+             dict(rng="host"), (ITERS, 0, 0))):
+        new_launches[name_k] = fit_pair(cls, ys_m, start_p, expect,
+                                        "16 K1 fit", **fkw, **kw_k)[0]
+    ra6 = {}
+    for cls, ys_m, start_p in ((samplers.GARCHSampler, ys_g, garch_start),
+                               (samplers.SVJMSampler, ys_j, svjm_start)):
+        for n_part in (1000, 1024):
+            ra6[(cls.__name__, n_part)] = fit_pair(
+                cls, ys_m, start_p, (0, ITERS * W, 0), "16 default fit",
+                N=n_part, subsequence_length=S, buffer_length=B)[1]
+
+    # the fused score against the unfused one, 1024 chains, full window
+    T_X, C_X = 20, 1024
+    for label, model_name, truth, kern_name in (
+            ("garch optimal", "garch", garch_truth, None),
+            ("garch prior", "garch", garch_truth, "prior"),
+            ("svjm", "svjm", svjm_truth, None)):
+        api = registry.get_model(model_name)
+        ys_x, _ = api.generate_data(gen, truth, T_X)
+        rows = type(truth)(*[x.expand((C_X,) + x.shape[1:]).contiguous()
+                             for x in vars(truth).values()])
+        cfg = sgmcmc.PFScoreConfig(n_particles=N, resampler="systematic")
+        stats = []
+        for fused_model, expect in ((api.get_fused(kern_name), (1, 0)),
+                                    (None, (0, T_X))):
+            score = sgmcmc.make_pf_score_fn(
+                api.get_kernel(kern_name), api.grad_statistic,
+                api.grad_statistic_dim, lambda s: s, cfg, T_X,
+                prior_mean_var_fn=api.prior_mean_var,
+                fused_model=fused_model)
+            reset_counts(fused_pf, resample, philox)
+            f, ll = score(gen, rows, ys_x)
+            launches = (fused_pf.fused_window.launches,
+                        resample.resample_apply.launches)
+            if launches != expect:
+                raise AssertionError(f"(K1, resample-apply) launches "
+                                     f"{launches} for the {label} score")
+            check_finite(f"the {label} score", f, ll)
+            stats.append(f.double())
+        f, g = stats
+        zval = (f.mean(0) - g.mean(0)) / torch.sqrt(
+            f.var(0) / C_X + g.var(0) / C_X + 1e-18)
+        phase("16 cross-route", f"{label}: fused vs unfused score, T={T_X} "
+              f"N={N} over {C_X} chains each: z per component "
+              f"{[round(float(v), 3) for v in zval]}")
+        if not bool((zval.abs() < 5).all()):
+            raise AssertionError(f"the fused {label} score is off the "
+                                 f"unfused one: z = {zval}")
+
+    # the SVJM oracle: at pJ = 1e-6 (the projection's floor) its shared
+    # statistic components equal the SVM's on the same first normals
+    C_O, T_O = 1024, 60
+    svm_p = svm.from_scalars(0.9, 0.5, 1.0, device=dev)
+    svjm_p = svjm.from_scalars(0.9, 0.5, 1.0, 1e-6, 2.0, device=dev)
+    z0 = torch.randn((C_O, 2, N), generator=gen, device=dev)
+    normals = torch.randn((C_O, T_O, 2, N), generator=gen, device=dev)
+    xi = torch.rand((C_O, T_O), generator=gen, device=dev)
+    window = ys[:T_O, 0].expand(C_O, T_O)
+    ones = torch.ones((C_O, T_O), device=dev)
+    pm = torch.zeros((C_O,), device=dev)
+    pv = svm.stationary_variance(svm_p).expand(C_O)
+    outs = []
+    for mod, p_o, Z in ((svm, svm_p, 1), (svjm, svjm_p, 2)):
+        rows = type(p_o)(*[x.expand((C_O,) + x.shape[1:]).contiguous()
+                           for x in vars(p_o).values()])
+        stat, _ = fused_pf.fused_pf_score(
+            mod.FUSED, rows, window, ones, z0[:, :Z], normals[:, :, :Z], xi,
+            pm, pv)
+        outs.append(stat[:, :3].double())
+    # Its proposal is sqrt(1/lqinv^2 + 0) z, the SVM's z / lqinv: the two
+    # differ in the last bit, which flips the odd ancestor at a CDF
+    # near-tie, so chains agree in law, not bit for bit.
+    g_s, g_j = outs
+    rel = ((g_j - g_s).abs() / (1.0 + g_s.abs())).amax(1)
+    zval = (g_j.mean(0) - g_s.mean(0)) / torch.sqrt(
+        g_j.var(0) / C_O + g_s.var(0) / C_O)
+    close = float((rel <= 1e-3).float().mean())
+    phase("16 SVJM oracle", f"pJ=1e-6 vs the SVM, T={T_O} N={N} over {C_O} "
+          f"chains on shared first normals: z of [grad_LRinv, grad_LQinv, "
+          f"grad_A] {[round(float(v), 3) for v in zval]}; chains within "
+          f"1e-3 (relative to 1 + |SVM|) {close:.2%}, median relative "
+          f"difference {float(rel.median()):.3e}")
+    if not bool((zval.abs() < 5).all()):
+        raise AssertionError(f"SVJM at pJ=1e-6 is off the SVM: z = {zval}")
+    del z0, normals, outs
+
+    # 17. the valid gate and the Seq samplers
+    n_seq = 8
+    lengths = torch.randint(200, 1001, (n_seq,), generator=gen,
+                            device=dev).tolist()
+    seqs = {m: [registry.get_model(m).generate_data(gen, truth, T_i)[0]
+                for T_i in lengths]
+            for m, truth in (("svm", svm.from_scalars(0.9, 0.5, 1.0,
+                                                         device=dev)),
+                                ("garch", garch_truth),
+                                ("svjm", svjm_truth))}
+    T_max = max(lengths)
+    phase("17 seq data", f"{n_seq} sequences per model, lengths {lengths}")
+
+    # K1 with vs on buffered windows with padded tails of 0-30 steps (a
+    # check of the gate alone: no path launches this shape) ...
+    vg_err = 0.0
+    for seeded in (False, True):
+        args = window_inputs(gen, C_BENCH, ys, svm, subsequence, buffered)
+        t_valid = torch.randint(W - 30, W + 1, (C_BENCH, 1), generator=gen,
+                                device=dev)
+        vs = (torch.arange(W, device=dev) < t_valid).float()
+        args = args[:4] + ((args[4] * vs).contiguous(), args[5])
+        sd = None
+        if seeded:
+            sd = torch.randint(-2 ** 63, 2 ** 63 - 1, (C_BENCH,),
+                               generator=gen, dtype=torch.int64, device=dev)
+            args = args[:2] + (None,) + args[3:]
+        what = ("valid gate, " + ("in-kernel" if seeded else "host")
+                + " normals, ")
+        err, _ = check_exact(svm.FUSED, args, sd, "17 valid gate", what,
+                             vs=vs)
+        vg_err = max(vg_err, err)
+        free = fused_pf.fused_window(svm.FUSED, *args, seeds=sd)
+        gated = fused_pf.fused_window(svm.FUSED, *args, seeds=sd, vs=vs)
+        full_rows = (t_valid[:, 0] == W)
+        same = (gated == free).all(1)
+        phase("17 valid gate", f"{what}chains with no padding equal the "
+              f"ungated kernel: {bool(same[full_rows].all())}; padded "
+              f"chains that differ from it: "
+              f"{float((~same[~full_rows]).float().mean()):.2%}")
+        if not bool(same[full_rows].all()) or bool(same[~full_rows].all()):
+            raise AssertionError("the valid gate is not applied as set")
+        del free, gated, args
+    # ... and on the inputs the Seq score builds for the Seq fits below:
+    # the SGLD setting's window (W = 16 + 2 * 4, no gate; 8192 rows) and
+    # the LD setting's full sequences (W = T_max, gated; 1024 chains x 8
+    # sequences), each checked bitwise, then timed and bounded there
+    sgld_kw = dict(N=N, subsequence_length=16, buffer_length=4,
+                   num_sequences=1, resampler="systematic", rng="kernel")
+    ld_kw = dict(N=N, subsequence_length=-1, resampler="systematic",
+                 rng="kernel")
+    seq_cls = {"svm": samplers.SeqSVMSampler,
+               "garch": samplers.SeqGARCHSampler,
+               "svjm": samplers.SeqSVJMSampler}
+    seq_k1 = {}
+    for name_k, model_name, mod, C, skw in (
+            ("svm_rng_kernel_seq", "svm", svm, C_BENCH, sgld_kw),
+            ("garch_optimal_rng_kernel_seq", "garch", garch, C_BENCH,
+             sgld_kw),
+            ("svjm_rng_kernel_seq", "svjm", svjm, C_BENCH, sgld_kw),
+            ("svm_valid_gate_rng_kernel", "svm", svm, 1024, ld_kw)):
+        smp = seq_cls[model_name](seqs[model_name])
+        score = smp._make_score(smp._score_config(**skw), None, **skw)
+        model = score.fused_model
+        draws = score.draw(gen, C, dev)
+        rows = random_params(mod, C * score.rows_per_chain)
+        window, step_w, _, vs = score._layout(draws, smp.observations)
+        pm, pv = smp.model.prior_mean_var(rows)
+        x0 = fused_pf.initial_state(model, draws.z0, pm, pv)
+        args = (model.pack_params(rows).contiguous(), x0.contiguous(), None,
+                window[..., 0].contiguous(), step_w.contiguous(), draws.u)
+        sd = draws.seeds
+        err, plain = check_exact(model, args, sd, "17 seq K1",
+                                 f"{name_k}, the Seq score's inputs, ",
+                                 vs=vs)
+        ms = cuda_ms(lambda: fused_pf.fused_window(model, *args, seeds=sd,
+                                                   vs=vs), 3)
+        R, Wk = args[3].shape
+        nbytes = k1_bytes(model, args, sd) + (0 if vs is None
+                                              else 4 * vs.numel())
+        active = None if vs is None else int((vs > 0).sum())
+        bnd, by = bound_ms(nbytes, k1_ops(
+            R, model.body, rng=True, Z=model.noise_dims, steps=Wk,
+            active=active))
+        seq_k1[name_k] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                              bound_ms=bnd, bound_by=by)
+        phase("17 seq K1", f"{name_k}: one window call, {R} rows N={N} "
+              f"W={Wk} ({'all' if vs is None else active} row-steps run "
+              f"part 4): kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+              f"{bnd:.3f} ms by {by} ({card})")
+        del args, draws, x0, window, step_w, vs
+    seq_k1["svm_valid_gate_rng_kernel"]["max_abs_err"] = max(
+        vg_err, seq_k1["svm_valid_gate_rng_kernel"]["max_abs_err"])
+    packed, lengths_np = samplers.pack_sequences(seqs["svm"])
+    packed = packed.to(dev)
+
+    # padding invariance of the Seq score on both routes
+    for route, okw, C_P in (("fused", dict(resampler="systematic",
+                                           rng="kernel"), 256),
+                            ("unfused", dict(resampler="multinomial"), 32)):
+        cfg = sgmcmc.PFScoreConfig(n_particles=N, subsequence_length=-1,
+                                   **okw)
+        score = sgmcmc.make_seq_pf_score_fn(
+            svm.KERNEL, svm.grad_statistic, 3, svm.unpack_grad, cfg,
+            lengths_np, prior_mean_var_fn=registry.SVM.prior_mean_var,
+            fused_model=svm.FUSED)
+        rows = svm.SVMParams(A=torch.full((C_P, 1, 1), 0.8, device=dev),
+                             LQinv_vec=torch.full((C_P, 1), 1.2, device=dev),
+                             LRinv_vec=torch.full((C_P, 1), 0.9, device=dev))
+        draws = score.draw(gen, C_P, dev)
+        outs = []
+        for pad in (0.0, -12.25):
+            obs = packed.clone()
+            for i, T_i in enumerate(lengths_np):
+                obs[i, T_i:] = pad
+            reset_counts(fused_pf, resample, philox)
+            g, ll = score(gen, rows, obs, draws)
+            outs.append(torch.cat([g.A[:, 0], g.LQinv_vec, g.LRinv_vec,
+                                   ll[:, None]], 1))
+        launches = (fused_pf.fused_window.launches,
+                    resample.resample_apply.launches)
+        same = bool(torch.equal(outs[0], outs[1]))
+        check_finite(f"the padded Seq score ({route})", outs[0])
+        phase("17 padding", f"{route} route ({okw}), {C_P} chains x "
+              f"{n_seq} sequences, W={T_max}: padding 0 and -12.25 give "
+              f"bitwise equal scores {same}; (K1, resample-apply) "
+              f"launches {launches}")
+        if not same or launches[0 if route == "fused" else 1] == 0:
+            raise AssertionError(f"the {route} Seq score depends on its "
+                                 f"padding, or did not run its kernel")
+        del draws, outs
+
+    # the Seq fits: the exchange-rate demo's SGLD and LD settings
+    seq_launches = {}
+    for name_k, model_name, start_p in (
+            ("svm_rng_kernel_seq", "svm", svm.from_scalars(0.5, 1.0, 2.0)),
+            ("garch_optimal_rng_kernel_seq", "garch", garch_start),
+            ("svjm_rng_kernel_seq", "svjm", svjm_start)):
+        seq_launches[name_k] = fit_pair(
+            seq_cls[model_name], seqs[model_name], start_p,
+            (ITERS, 0, ITERS), "17 seq fit", **sgld_kw)[0]
+    ld_launches = fit_pair(samplers.SeqSVMSampler, seqs["svm"],
+                           svm.from_scalars(0.5, 1.0, 2.0),
+                           (ITERS, 0, ITERS), "17 seq fit", C=1024, **ld_kw)[0]
+
     main_shape = ra_times["K2b"]
-    k1_src = "sgmcmc_tpu_torch/csrc/fused_window.cu"
     k1_tpu = "sgmcmc_tpu/ops/pallas/fused_pf.py:121"
+
+    def k1_src(body, *extra):
+        """The sources of K1 on one body."""
+        model = body.split("_")[0]
+        return " + ".join(f"sgmcmc_tpu_torch/csrc/{f}" for f in (
+            "fused_window.cuh", f"fused_window_{body}.cu",
+            f"{model}_body.cuh") + extra)
+
+    def k1_entry(name_k, body, replaces, launches, numbers, *extra):
+        return {"name": f"fused_window_{name_k}", "route": "cuda",
+                "source": k1_src(body, *extra),
+                "replaces": k1_tpu + replaces, "launches": launches,
+                **numbers, "library_ms": None}
+
+    def body_of(name_k):
+        return name_k.replace("_rng_kernel", "").replace("_seq", "")
+
+    def body_lines(name_k):
+        return {"garch": " (sgmcmc_tpu/models/garch.py:276-346)",
+                "svjm": " (sgmcmc_tpu/models/svjm.py:442-503)",
+                "svm": " (rng='kernel', _box_muller :109)"}[
+                    name_k.split("_")[0]]
+
     print(json.dumps({"kernels": [
-        {"name": "fused_window_svm", "route": "cuda", "source": k1_src,
-         "replaces": k1_tpu,
-         "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None},
-        {"name": "fused_window_svm_rng_kernel", "route": "cuda",
-         "source": k1_src + " + sgmcmc_tpu_torch/csrc/philox.cuh",
-         "replaces": k1_tpu + " (rng='kernel', _box_muller :109)",
-         "launches": rng_launches, "max_abs_err": rng_err, "ms": rng_ms,
-         "plain_ms": rng_plain, "bound_ms": rng_bound, "bound_by": rng_by,
-         "library_ms": None},
-        {"name": "fused_window_svm_ess_gate", "route": "cuda",
-         "source": k1_src,
-         "replaces": k1_tpu + " (ess_threshold, :190-201)",
-         "launches": ess_launches, "max_abs_err": ess_err, "ms": ess_ms,
-         "plain_ms": ess_plain, "bound_ms": ess_bound, "bound_by": ess_by,
-         "library_ms": None},
-        *[{"name": f"fused_window_{body}_rng_kernel", "route": "cuda",
-           "source": k1_src + " + sgmcmc_tpu_torch/csrc/lgssm_body.cuh",
-           "replaces": k1_tpu + " (sgmcmc_tpu/models/lgssm.py:663-729)",
-           "launches": lg_launches[body], **lg[body], "library_ms": None}
+        k1_entry("svm", "svm", "", k1_launches, dict(
+            max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
+            bound_ms=k1_bound, bound_by=k1_by)),
+        k1_entry("svm_rng_kernel", "svm", " (rng='kernel', _box_muller :109)",
+                 rng_launches, dict(
+                     max_abs_err=rng_err, ms=rng_ms, plain_ms=rng_plain,
+                     bound_ms=rng_bound, bound_by=rng_by), "philox.cuh"),
+        k1_entry("svm_ess_gate", "svm", " (ess_threshold, :190-201)",
+                 ess_launches, dict(
+                     max_abs_err=ess_err, ms=ess_ms, plain_ms=ess_plain,
+                     bound_ms=ess_bound, bound_by=ess_by)),
+        *[k1_entry(f"{body}_rng_kernel", body,
+                   " (sgmcmc_tpu/models/lgssm.py:663-729)", lg_launches[body],
+                   lg[body], "philox.cuh")
           for body in ("lgssm_optimal", "lgssm_prior")],
+        *[k1_entry(name_k, body_of(name_k), body_lines(name_k),
+                   new_launches[name_k], new_k1[name_k],
+                   *(("philox.cuh",) if "rng" in name_k else ()))
+          for name_k in new_launches],
+        # the same variants at the Seq SGLD fits' window
+        *[k1_entry(name_k, body_of(name_k), body_lines(name_k)
+                   + "; Seq score, sgmcmc_tpu/inference/sgmcmc.py:272-281",
+                   seq_launches[name_k], seq_k1[name_k], "philox.cuh")
+          for name_k in seq_launches],
+        k1_entry("svm_valid_gate_rng_kernel", "svm", " (valid_gate, :342-352)",
+                 ld_launches, seq_k1["svm_valid_gate_rng_kernel"],
+                 "philox.cuh"),
         {"name": "resample_apply", "route": "cuda",
          "source": "sgmcmc_tpu_torch/csrc/resample_apply.cu",
          "replaces": "sgmcmc_tpu/ops/pallas/resample.py:178 (K2a), "
@@ -777,7 +1219,7 @@ def main():
          "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 

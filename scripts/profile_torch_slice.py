@@ -3,16 +3,20 @@
 
     python3 scripts/profile_torch_slice.py [--chains 8192] [--iters 20]
         [--runs 7] [--resampler systematic|multinomial|stratified]
-        [--particles 1024] [--rng host|kernel] [--model svm|lgssm]
+        [--particles 1024] [--rng host|kernel]
+        [--model svm|lgssm|garch|svjm] [--kernel optimal|prior]
 
 Runs ``SVMSampler.fit_scan("SGLD", record="none")`` at the benchmark
 configuration (SVM, T=1000, N=1024, S=40, B=10, Poyiadjis O(N), systematic
 resampling: the fused-window path) or, with ``--resampler multinomial``,
 the JAX package's default resampler (the unfused path, one resample-apply
 launch per window step).  ``--rng kernel`` generates the fused window's
-normals on the card (the JAX headline's ``rng="kernel"``); ``--model
-lgssm`` runs ``LGSSMSampler`` on the scalar LGSSM instead (true A=0.9,
-C=1, Q=0.5, R=1; start A=0.5, Q=1, R=2).  It prints:
+normals on the card (the JAX headline's ``rng="kernel"``); ``--model``
+runs ``LGSSMSampler`` on the scalar LGSSM (true A=0.9, C=1, Q=0.5, R=1;
+start A=0.5, Q=1, R=2), ``GARCHSampler`` (true alpha=0.1, beta=0.6,
+gamma=0.2, R=0.5; start 0.2, 0.3, 0.3, 1) or ``SVJMSampler`` (true A=0.9,
+Q=0.5, R=1, pJ=0.1, QJ=2; start 0.5, 1, 2, 0.05, 1) instead, ``--kernel``
+selects the particle kernel.  It prints:
   - the card's ``nvidia-smi`` name and power limit;
   - aggregate steps/s of ``--runs`` timed fits after one warm-up (each run,
     then the median and the lower and upper quartile);
@@ -85,15 +89,27 @@ def main():
                     choices=("systematic", "multinomial", "stratified"))
     ap.add_argument("--particles", type=int, default=1024)
     ap.add_argument("--rng", default="host", choices=("host", "kernel"))
-    ap.add_argument("--model", default="svm", choices=("svm", "lgssm"))
+    ap.add_argument("--model", default="svm",
+                    choices=("svm", "lgssm", "garch", "svjm"))
+    ap.add_argument("--kernel", default=None, choices=("optimal", "prior"))
     args = ap.parse_args()
     N = args.particles
     if not torch.cuda.is_available():
         sys.exit("profile_torch_slice: no CUDA device is available")
-    from sgmcmc_tpu_torch.inference.samplers import LGSSMSampler, SVMSampler
-    from sgmcmc_tpu_torch.models import lgssm, svm
-    mod, cls = (svm, SVMSampler) if args.model == "svm" else (lgssm,
-                                                              LGSSMSampler)
+    from sgmcmc_tpu_torch.inference import samplers
+    from sgmcmc_tpu_torch.models import garch, lgssm, registry, svjm, svm
+    cls, truth, start = {
+        "svm": (samplers.SVMSampler, svm.from_scalars(0.9, 0.5, 1.0),
+                svm.from_scalars(0.5, 1.0, 2.0)),
+        "lgssm": (samplers.LGSSMSampler, lgssm.from_scalars(0.9, 0.5, 1.0),
+                  lgssm.from_scalars(0.5, 1.0, 2.0)),
+        "garch": (samplers.GARCHSampler,
+                  garch.from_alpha_beta_gamma(0.1, 0.6, 0.2, 0.5),
+                  garch.from_alpha_beta_gamma(0.2, 0.3, 0.3, 1.0)),
+        "svjm": (samplers.SVJMSampler,
+                 svjm.from_scalars(0.9, 0.5, 1.0, 0.1, 2.0),
+                 svjm.from_scalars(0.5, 1.0, 2.0, 0.05, 1.0)),
+    }[args.model]
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -102,15 +118,16 @@ def main():
     print(f"card: {card}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    ys, _ = mod.generate_data(gen, mod.from_scalars(0.9, 0.5, 1.0, device=dev),
-                              T)
+    ys, _ = registry.get_model(args.model).generate_data(gen, truth.to(dev),
+                                                         T)
     sampler = cls(observations=ys, device="cuda", seed=2)
-    sampler.parameters = mod.from_scalars(0.5, 1.0, 2.0)
+    sampler.parameters = start
     kw = dict(N=N, subsequence_length=S, buffer_length=B, pf="poyiadjis_N",
-              resampler=args.resampler, rng=args.rng)
-    print(f"config: {args.model}, {args.chains} chains, N={N}, S={S}, B={B}, "
-          f"T={T}, Poyiadjis O(N), {args.resampler} resampling, "
-          f"rng={args.rng}")
+              resampler=args.resampler, rng=args.rng, kernel=args.kernel)
+    Z = sampler.model.get_kernel(args.kernel).noise_dim
+    print(f"config: {args.model} (kernel {args.kernel or 'default'}), "
+          f"{args.chains} chains, N={N}, S={S}, B={B}, T={T}, Poyiadjis "
+          f"O(N), {args.resampler} resampling, rng={args.rng}")
 
     def fit():
         _, aux = sampler.fit_scan("SGLD", num_iters=args.iters, epsilon=0.1,
@@ -173,7 +190,7 @@ def main():
     for us, n in fused:
         msg = f"fused window: {us / n / 1e3:.3f} ms per call"
         if args.rng == "host":
-            stream = args.chains * W * N * 4 / (us / n / 1e6)
+            stream = args.chains * W * Z * N * 4 / (us / n / 1e6)
             msg += (f", normals streamed at {stream / 1e9:.1f} GB/s = "
                     f"{stream / bw:.2%} of the copy rate")
         print(f"{msg} ({card})")

@@ -16,6 +16,14 @@ _EXPORTS = {
     "Sampler": "sgmcmc_tpu_torch.inference.samplers",
     "SVMSampler": "sgmcmc_tpu_torch.inference.samplers",
     "LGSSMSampler": "sgmcmc_tpu_torch.inference.samplers",
+    "GARCHSampler": "sgmcmc_tpu_torch.inference.samplers",
+    "SVJMSampler": "sgmcmc_tpu_torch.inference.samplers",
+    "SeqSampler": "sgmcmc_tpu_torch.inference.samplers",
+    "SeqSVMSampler": "sgmcmc_tpu_torch.inference.samplers",
+    "SeqGARCHSampler": "sgmcmc_tpu_torch.inference.samplers",
+    "SeqSVJMSampler": "sgmcmc_tpu_torch.inference.samplers",
+    "SeqLGSSMSampler": "sgmcmc_tpu_torch.inference.samplers",
+    "pack_sequences": "sgmcmc_tpu_torch.inference.samplers",
 }
 
 __all__ = ["__version__", *_EXPORTS]

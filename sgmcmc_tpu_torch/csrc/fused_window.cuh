@@ -1,4 +1,7 @@
-// Fused buffered particle-smoother window for Hopper (sm_90a).
+// Fused buffered particle-smoother window for Hopper (sm_90a): the kernel
+// template, its launcher and the entry-point macro.  Each model body is
+// instantiated in a translation unit of its own (fused_window_<body>.cu),
+// so that the build compiles the bodies in parallel.
 //
 // Replaces the TPU kernel _fused_window_kernel of
 // sgmcmc_tpu/ops/pallas/fused_pf.py (launched by fused_window_batched).
@@ -22,8 +25,9 @@
 // The epilogue adds the last step's increment and writes the
 // weight-averaged statistic and the log-likelihood: out[c] = [stat | ll].
 //
-// Options (template parameters, so that each variant compiles without the
-// others' code and registers):
+// Options, each a template parameter, so that each variant compiles
+// without the others' code and registers (the launcher picks the variant
+// from its arguments):
 //   - in-kernel normals (seeds != nullptr): the proposal normals come from
 //     the Philox generator of philox.cuh, keyed by the chain's seed, at
 //     counter (i >> 1, t, q, 0), instead of the normals array (the JAX
@@ -32,7 +36,14 @@
 //     max-shifted weights, a chain resamples only when ESS < ess_thr * N or
 //     its weights are degenerate; otherwise every particle keeps its own
 //     state (ancestor i) and its new log-weight gains
-//     log w_i - m - log tot + log N (fused_pf.py's ESS gate).
+//     log w_i - m - log tot + log N (fused_pf.py's ESS gate);
+//   - the valid gate (vs != nullptr; fused_pf.py's valid_gate): a step with
+//     vs[c, t] <= 0 skips part 4, so the chain keeps its carries and
+//     log-weights.  Parts 1-2 still run: the first invalid step adds the
+//     deferred increment of the last valid one (its weight w_{t-1} is not
+//     zero), and later invalid steps add w_{t-1} = 0 times theirs.  As a
+//     runtime branch (vs == nullptr: all valid) it cost the ungated SVM
+//     kernel 7% at the benchmark shape, so it is a template parameter too.
 //
 // What bounds it on the card: with host normals, the normals stream from
 // device memory, W*Z*N*4 bytes per chain (240 KB at W=60, N=1024; 2 GB per
@@ -51,12 +62,12 @@
 // float64) then selects the same ancestors.  The file is compiled with
 // --fmad=false for the same reason: the model body rounds after every
 // operation, as PyTorch's elementwise operators do.
+#pragma once
+
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "lgssm_body.cuh"
 #include "philox.cuh"
-#include "svm_body.cuh"
 
 namespace {
 
@@ -137,7 +148,7 @@ __device__ double block_exclusive_scan(double v, double* dred,
   return warp_excl + (x - v);
 }
 
-template <class Body, bool kRng, bool kGate>
+template <class Body, bool kRng, bool kGate, bool kValid>
 __global__ void __launch_bounds__(kThreads)
 fused_window_kernel(const float* __restrict__ pvec,     // [C, P]
                     const float* __restrict__ x0,       // [C, D, N]
@@ -147,6 +158,7 @@ fused_window_kernel(const float* __restrict__ pvec,     // [C, P]
                     const float* __restrict__ ys,       // [C, W]
                     const float* __restrict__ weights,  // [C, W]
                     const float* __restrict__ xi,       // [C, W]
+                    const float* __restrict__ vs,       // [C, W] or null
                     float lam, double ess_thr, int W, int N,
                     float* __restrict__ out) {          // [C, H + 1]
   constexpr int D = Body::D, Z = Body::Z, H = Body::H, P = Body::P;
@@ -154,8 +166,8 @@ fused_window_kernel(const float* __restrict__ pvec,     // [C, P]
   extern __shared__ __align__(16) unsigned char smem[];
   double* dred = reinterpret_cast<double*>(smem);
   float* red = reinterpret_cast<float*>(dred + kRed);
-  float* aux = red + kRed;     // [3W]: ys | weights | xi
-  float* cdf = aux + 3 * W;    // [N]
+  float* aux = red + kRed;     // [3W or 4W]: ys | weights | xi (| valid)
+  float* cdf = aux + (kValid ? 4 : 3) * W;    // [N]
   float* logw = cdf + N;       // [N]
   float* Vc = logw + N;        // [K, N] carries of the current step
   float* Vn = Vc + K * N;      // [K, N] carries of the next step
@@ -182,6 +194,7 @@ fused_window_kernel(const float* __restrict__ pvec,     // [C, P]
     aux[k] = ys[o];
     aux[W + k] = weights[o];
     aux[2 * W + k] = xi[o];
+    if (kValid) aux[3 * W + k] = vs[o];
   }
   for (int i = i0; i < i1; ++i) {
 #pragma unroll
@@ -243,7 +256,9 @@ fused_window_kernel(const float* __restrict__ pvec,     // [C, P]
     }
     __syncthreads();  // the CDF is complete
 
-    // 4. resample, propose, reweight, statistic
+    // 4. resample, propose, reweight, statistic (valid steps only: the
+    // branch is uniform over the block)
+    if (kValid && !(aux[3 * W + t] > 0.0f)) continue;
     const float y = aux[t], wt = aux[W + t], xit = aux[2 * W + t];
     const float* nz = kRng ? nullptr
         : normals + (static_cast<size_t>(c) * W + t) * Z * N;
@@ -326,76 +341,83 @@ fused_window_kernel(const float* __restrict__ pvec,     // [C, P]
 // Dynamic shared memory of one block: the reduction scratch, the
 // per-step scalars, the CDF, the log-weights and two [K, N] carry buffers.
 template <class Body>
-size_t smem_bytes(int W, int N) {
+size_t smem_bytes(int W, int N, bool valid) {
   constexpr int K = Body::D + Body::H;
   return kRed * sizeof(double) + kRed * sizeof(float)
-      + sizeof(float) * (3 * static_cast<size_t>(W) + 2 * static_cast<size_t>(N)
+      + sizeof(float) * ((valid ? 4 : 3) * static_cast<size_t>(W)
+                         + 2 * static_cast<size_t>(N)
                          + 2 * static_cast<size_t>(K) * N);
 }
 
-template <class Body, bool kRng, bool kGate>
+template <class Body, bool kRng, bool kGate, bool kValid>
 int launch_variant(const float* pvec, const float* x0, const float* normals,
                    const long long* seeds, const float* ys,
-                   const float* weights, const float* xi, float* out, int C,
-                   int W, int N, float lam, double ess_thr, void* stream) {
-  const size_t smem = smem_bytes<Body>(W, N);
+                   const float* weights, const float* xi, const float* vs,
+                   float* out, int C, int W, int N, float lam, double ess_thr,
+                   void* stream) {
+  const size_t smem = smem_bytes<Body>(W, N, kValid);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        fused_window_kernel<Body, kRng, kGate>,
+        fused_window_kernel<Body, kRng, kGate, kValid>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  fused_window_kernel<Body, kRng, kGate><<<
+  fused_window_kernel<Body, kRng, kGate, kValid><<<
       C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      pvec, x0, normals, seeds, ys, weights, xi, lam, ess_thr, W, N, out);
+      pvec, x0, normals, seeds, ys, weights, xi, vs, lam, ess_thr, W, N,
+      out);
   return static_cast<int>(cudaGetLastError());
+}
+
+using LaunchFn = int(const float*, const float*, const float*,
+                    const long long*, const float*, const float*,
+                    const float*, const float*, float*, int, int, int, float,
+                    double, void*);
+
+template <class Body, bool kRng, bool kGate>
+LaunchFn* pick_valid(bool valid) {
+  return valid ? &launch_variant<Body, kRng, kGate, true>
+               : &launch_variant<Body, kRng, kGate, false>;
+}
+
+template <class Body, bool kRng>
+LaunchFn* pick_gate(bool gate, bool valid) {
+  return gate ? pick_valid<Body, kRng, true>(valid)
+              : pick_valid<Body, kRng, false>(valid);
 }
 
 template <class Body>
 int launch(const float* pvec, const float* x0, const float* normals,
            const long long* seeds, const float* ys, const float* weights,
-           const float* xi, float* out, int C, int W, int N, float lam,
-           double ess_thr, void* stream) {
+           const float* xi, const float* vs, float* out, int C, int W, int N,
+           float lam, double ess_thr, void* stream) {
   if ((normals == nullptr) == (seeds == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool rng = seeds != nullptr, gate = ess_thr >= 0.0;
-  auto* variant = rng
-      ? (gate ? &launch_variant<Body, true, true>
-              : &launch_variant<Body, true, false>)
-      : (gate ? &launch_variant<Body, false, true>
-              : &launch_variant<Body, false, false>);
-  return variant(pvec, x0, normals, seeds, ys, weights, xi, out, C, W, N,
+  const bool gate = ess_thr >= 0.0, valid = vs != nullptr;
+  LaunchFn* variant = seeds != nullptr ? pick_gate<Body, true>(gate, valid)
+                                       : pick_gate<Body, false>(gate, valid);
+  return variant(pvec, x0, normals, seeds, ys, weights, xi, vs, out, C, W, N,
                  lam, ess_thr, stream);
 }
 
 }  // namespace
 
 // One pair of entry points per body: the bytes of dynamic shared memory a
-// block needs, and the launch on `stream` of the calling thread's current
-// device (the caller selects it), which returns cudaGetLastError().
-// Exactly one of `normals` (host normals) and `seeds` (in-kernel normals)
-// is non-null; a negative `ess_thr` turns the ESS gate off.
+// block needs (with or without the valid gate's row), and the launch on
+// `stream` of the calling thread's current device (the caller selects it),
+// which returns cudaGetLastError().  Exactly one of `normals` (host
+// normals) and `seeds` (in-kernel normals) is non-null; a negative
+// `ess_thr` turns the ESS gate off, a null `vs` the valid gate.
 #define SGMCMC_FUSED_WINDOW_ENTRY(NAME, BODY)                                \
-  size_t sgmcmc_fused_window_##NAME##_smem(int W, int N) {                   \
-    return smem_bytes<BODY>(W, N);                                           \
+  extern "C" size_t sgmcmc_fused_window_##NAME##_smem(int W, int N,          \
+                                                      int valid) {           \
+    return smem_bytes<BODY>(W, N, valid != 0);                               \
   }                                                                          \
-  int sgmcmc_fused_window_##NAME(                                            \
+  extern "C" int sgmcmc_fused_window_##NAME(                                 \
       const float* pvec, const float* x0, const float* normals,              \
       const long long* seeds, const float* ys, const float* weights,         \
-      const float* xi, float* out, int C, int W, int N, float lam,           \
-      double ess_thr, void* stream) {                                        \
-    return launch<BODY>(pvec, x0, normals, seeds, ys, weights, xi, out, C,   \
-                        W, N, lam, ess_thr, stream);                         \
+      const float* xi, const float* vs, float* out, int C, int W, int N,    \
+      float lam, double ess_thr, void* stream) {                             \
+    return launch<BODY>(pvec, x0, normals, seeds, ys, weights, xi, vs, out,  \
+                        C, W, N, lam, ess_thr, stream);                      \
   }
-
-extern "C" {
-
-SGMCMC_FUSED_WINDOW_ENTRY(svm, SvmBody)
-SGMCMC_FUSED_WINDOW_ENTRY(lgssm_optimal, LgssmOptimalBody)
-SGMCMC_FUSED_WINDOW_ENTRY(lgssm_prior, LgssmPriorBody)
-
-const char* sgmcmc_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-}  // extern "C"

@@ -1,0 +1,8 @@
+// The fused window of fused_window.cuh on SvjmBody (svjm_body.cuh):
+// its eight variants (host or in-kernel normals, with or without the ESS
+// gate and the valid gate) behind the entry points
+// sgmcmc_fused_window_svjm(_smem).
+#include "fused_window.cuh"
+#include "svjm_body.cuh"
+
+SGMCMC_FUSED_WINDOW_ENTRY(svjm, SvjmBody)

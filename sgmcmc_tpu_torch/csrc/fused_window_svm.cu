@@ -1,0 +1,8 @@
+// The fused window of fused_window.cuh on SvmBody (svm_body.cuh):
+// its eight variants (host or in-kernel normals, with or without the ESS
+// gate and the valid gate) behind the entry points
+// sgmcmc_fused_window_svm(_smem).
+#include "fused_window.cuh"
+#include "svm_body.cuh"
+
+SGMCMC_FUSED_WINDOW_ENTRY(svm, SvmBody)

@@ -1,5 +1,5 @@
 """User-facing sampler classes (counterpart of the SGLD ``fit_scan`` path
-of ``sgmcmc_tpu/inference/samplers.py``).
+of ``sgmcmc_tpu/inference/samplers.py``, with its multi-sequence samplers).
 
 A :class:`Sampler` holds the model, the observations, the prior, the
 parameters, a seeded ``torch.Generator`` and its ``device``: the card
@@ -90,17 +90,25 @@ class Sampler:
         m = self.model
         cfg = self._score_config(**kwargs)
         kernel_name = kwargs.get("kernel")
-        key = ("grad", cfg, kernel_name, self.T)
+        key = ("grad", cfg, kernel_name, self.T, self._score_key(**kwargs))
         if key not in self._cache:
-            score = sgmcmc.make_pf_score_fn(
-                m.get_kernel(kernel_name), m.grad_statistic,
-                m.grad_statistic_dim, m.unpack_grad, cfg, self.T,
-                prior_mean_var_fn=m.prior_mean_var,
-                fused_model=m.get_fused(kernel_name) if m.get_fused
-                else None)
+            score = self._make_score(cfg, kernel_name, **kwargs)
             self._cache[key] = sgmcmc.make_noisy_grad_fn(
                 score, lambda p: m.grad_logprior(self.prior, p), self.T)
         return self._cache[key]
+
+    def _score_key(self, **kwargs):
+        """What else than the config and kernel selects the score."""
+        return None
+
+    def _make_score(self, cfg: sgmcmc.PFScoreConfig, kernel_name,
+                    **kwargs) -> sgmcmc.PFScore:
+        m = self.model
+        return sgmcmc.make_pf_score_fn(
+            m.get_kernel(kernel_name), m.grad_statistic,
+            m.grad_statistic_dim, m.unpack_grad, cfg, self.T,
+            prior_mean_var_fn=m.prior_mean_var,
+            fused_model=m.get_fused(kernel_name) if m.get_fused else None)
 
     # -- multi-chain plumbing ----------------------------------------------
     def _chain_init_params(self, num_chains: int, chain_init):
@@ -200,9 +208,88 @@ class SVMSampler(Sampler):
         super().__init__("svm", observations, **kw)
 
 
+class GARCHSampler(Sampler):
+    def __init__(self, observations=None, **kw):
+        super().__init__("garch", observations, **kw)
+
+
+class SVJMSampler(Sampler):
+    """Stochastic-volatility jump model; its EP proposals are not ported
+    yet (ROADMAP.md, Queue 1 item 10)."""
+    def __init__(self, observations=None, **kw):
+        super().__init__("svjm", observations, **kw)
+
+
 class LGSSMSampler(Sampler):
     """Scalar linear-Gaussian state-space model (n = m = 1).  The JAX
     package's Gibbs mixin is not ported yet (ROADMAP.md, Queue 1 item
     12)."""
     def __init__(self, observations=None, **kw):
+        super().__init__("lgssm", observations, **kw)
+
+
+def pack_sequences(sequences):
+    """List of ``[T_i, ...]`` arrays or tensors -> (padded
+    ``[n_seq, T_max, ...]`` tensor, zero beyond each length; lengths
+    ``[n_seq]`` int64 numpy)."""
+    arrays = [np.asarray(s.detach().cpu() if isinstance(s, torch.Tensor)
+                         else s) for s in sequences]
+    lengths = np.array([a.shape[0] for a in arrays], np.int64)
+    packed = np.zeros((len(arrays), int(lengths.max())) + arrays[0].shape[1:],
+                      dtype=arrays[0].dtype)
+    for i, a in enumerate(arrays):
+        packed[i, :a.shape[0]] = a
+    return torch.from_numpy(packed), lengths
+
+
+class SeqSampler(Sampler):
+    """Multi-sequence sampler: the observations are a list of sequences,
+    and each gradient subsamples ``num_sequences`` of them (-1: all) and a
+    subsequence within each (:class:`~.sgmcmc.SeqPFScore`).  ``T`` is the
+    total length.  The predict surface and the exact log-likelihoods are
+    not ported yet (ROADMAP.md, Queue 1 item 12)."""
+
+    def __init__(self, model, observations: list, num_sequences: int = -1,
+                 **kw):
+        packed, lengths = pack_sequences(observations)
+        self.lengths = lengths
+        self.num_sequences = num_sequences
+        super().__init__(model, packed[..., None] if packed.ndim == 2
+                         else packed, **kw)
+
+    @property
+    def T(self) -> int:
+        return int(self.lengths.sum())
+
+    def _score_key(self, **kwargs):
+        return kwargs.get("num_sequences", self.num_sequences)
+
+    def _make_score(self, cfg: sgmcmc.PFScoreConfig, kernel_name,
+                    **kwargs) -> sgmcmc.SeqPFScore:
+        m = self.model
+        return sgmcmc.make_seq_pf_score_fn(
+            m.get_kernel(kernel_name), m.grad_statistic,
+            m.grad_statistic_dim, m.unpack_grad, cfg, self.lengths,
+            num_sequences=self._score_key(**kwargs),
+            prior_mean_var_fn=m.prior_mean_var,
+            fused_model=m.get_fused(kernel_name) if m.get_fused else None)
+
+
+class SeqSVMSampler(SeqSampler):
+    def __init__(self, observations, **kw):
+        super().__init__("svm", observations, **kw)
+
+
+class SeqSVJMSampler(SeqSampler):
+    def __init__(self, observations, **kw):
+        super().__init__("svjm", observations, **kw)
+
+
+class SeqGARCHSampler(SeqSampler):
+    def __init__(self, observations, **kw):
+        super().__init__("garch", observations, **kw)
+
+
+class SeqLGSSMSampler(SeqSampler):
+    def __init__(self, observations, **kw):
         super().__init__("lgssm", observations, **kw)

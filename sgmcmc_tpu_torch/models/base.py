@@ -16,7 +16,8 @@ import dataclasses
 from typing import Any, Callable
 
 # Signatures (Params is a model dataclass of [C, ...] tensors):
-#   sample_x0(params, z [C, N, D], prior_mean [C], prior_var [C]) -> [C, N, D]
+#   sample_x0(params, z [C, N, min(D, Z)], prior_mean [C], prior_var [C])
+#       -> [C, N, D]
 #   propose(params, z [C, N, Z], x_t [C, N, D], y_next [C, m]) -> [C, N, D]
 #   reweight(params, x_t [C, N, D], x_next [C, N, D], y_next [C, m]) -> [C, N]
 #   prior_log_density(params, x_t [C, M, D], x_next [C, M, D]) -> [C, M]

@@ -1,6 +1,6 @@
 """Uniform model adapter (counterpart of ``sgmcmc_tpu/models/registry.py``,
-with the fields buffered-PF SGLD reads and the SVM and scalar LGSSM
-entries)."""
+with the fields buffered-PF SGLD reads and the SVM, scalar LGSSM, GARCH
+and SVJM entries)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,7 +8,9 @@ from typing import Callable
 
 import torch
 
+from . import garch as garch_mod
 from . import lgssm as lgssm_mod
+from . import svjm as svjm_mod
 from . import svm as svm_mod
 
 
@@ -29,48 +31,40 @@ class ModelAPI:
     get_fused: Callable | None = None   # kernel_name -> FusedModel | None
 
 
-SVM = ModelAPI(
-    name="svm",
-    get_kernel=svm_mod.get_kernel,
-    grad_statistic=svm_mod.grad_statistic,
-    grad_statistic_dim=svm_mod.STATISTIC_DIM,
-    unpack_grad=svm_mod.unpack_grad,
-    default_prior=svm_mod.default_prior,
-    logprior=svm_mod.logprior,
-    grad_logprior=svm_mod.grad_logprior,
-    sample_prior=svm_mod.sample_prior,
-    project_parameters=svm_mod.project_parameters,
-    generate_data=svm_mod.generate_data,
-    prior_mean_var=lambda p: (torch.zeros_like(p.a),
-                              svm_mod.stationary_variance(p)),
-    get_fused=svm_mod.get_fused,
-)
+def _api(name: str, mod, prior_mean_var) -> ModelAPI:
+    return ModelAPI(
+        name=name, get_kernel=mod.get_kernel,
+        grad_statistic=mod.grad_statistic,
+        grad_statistic_dim=mod.STATISTIC_DIM, unpack_grad=mod.unpack_grad,
+        default_prior=mod.default_prior, logprior=mod.logprior,
+        grad_logprior=mod.grad_logprior, sample_prior=mod.sample_prior,
+        project_parameters=mod.project_parameters,
+        generate_data=mod.generate_data, prior_mean_var=prior_mean_var,
+        get_fused=mod.get_fused)
 
 
-LGSSM = ModelAPI(
-    name="lgssm_1_1",
-    get_kernel=lgssm_mod.get_kernel,
-    grad_statistic=lgssm_mod.grad_statistic,
-    grad_statistic_dim=lgssm_mod.STATISTIC_DIM,
-    unpack_grad=lgssm_mod.unpack_grad,
-    default_prior=lgssm_mod.default_prior,
-    logprior=lgssm_mod.logprior,
-    grad_logprior=lgssm_mod.grad_logprior,
-    sample_prior=lgssm_mod.sample_prior,
-    project_parameters=lgssm_mod.project_parameters,
-    generate_data=lgssm_mod.generate_data,
-    # the JAX package's (0, 10 I) initial-state prior, per chain
-    prior_mean_var=lambda p: (torch.zeros_like(p.a),
-                              torch.full_like(p.a, 10.0)),
-    get_fused=lgssm_mod.get_fused,
-)
+def _stationary_prior(mod):
+    """The JAX package's (0, stationary variance) initial-state prior."""
+    def prior_mean_var(p):
+        var = mod.stationary_variance(p)
+        return torch.zeros_like(var), var
+    return prior_mean_var
+
+
+SVM = _api("svm", svm_mod, _stationary_prior(svm_mod))
+# the JAX package's (0, 10 I) initial-state prior, per chain
+LGSSM = _api("lgssm_1_1", lgssm_mod,
+             lambda p: (torch.zeros_like(p.a), torch.full_like(p.a, 10.0)))
+GARCH = _api("garch", garch_mod, _stationary_prior(garch_mod))
+SVJM = _api("svjm", svjm_mod, _stationary_prior(svjm_mod))
+_MODELS = {"svm": SVM, "garch": GARCH, "svjm": SVJM}
 
 
 def get_model(name: str, **kwargs) -> ModelAPI:
     """The model adapter ``name``; the LGSSM takes ``n`` and ``m``, of
     which only the scalar model (n = m = 1) is ported."""
-    if name == "svm" and not kwargs:
-        return SVM
+    if name in _MODELS and not kwargs:
+        return _MODELS[name]
     if name == "lgssm" and set(kwargs) <= {"n", "m"}:
         n, m = kwargs.get("n", 1), kwargs.get("m", 1)
         if (n, m) == (1, 1):

@@ -61,17 +61,18 @@ def run_buffered_pf(
         elementwise: bool = False,
         save_all: bool = False,
         fixed_lag: int | None = None,
-        step_valid: torch.Tensor | None = None,
+        step_valid: torch.Tensor | None = None,     # [C, W] {0., 1.}
 ) -> PFOutput:
     """Run ``W`` steps of a buffered particle smoother over each chain's
     window.  ``step_weights`` carries both the buffering (zero outside
     ``[t1, tL)``) and the subsequence-unbiasedness weights; ``in_window``
-    gates the log-likelihood accumulation."""
-    if elementwise or save_all or fixed_lag is not None \
-            or step_valid is not None:
+    gates the log-likelihood accumulation.  ``step_valid`` freezes the
+    whole carry (running log-likelihood included) of a chain on the steps
+    where it is not positive: the padded tails of multi-sequence
+    windows."""
+    if elementwise or save_all or fixed_lag is not None:
         raise NotImplementedError(
-            "elementwise, fixed-lag, save_all and step_valid modes are not "
-            "ported yet")
+            "elementwise, fixed-lag and save_all modes are not ported yet")
     C, W = observations.shape[:2]
     dtype, dev = observations.dtype, observations.device
     if step_weights is None:
@@ -93,10 +94,16 @@ def run_buffered_pf(
                     torch.zeros(stats_shape, dtype=dtype, device=dev),
                     torch.zeros((C,), dtype=dtype, device=dev))
     for t in range(W):
-        carry = step(params, carry, PFStepInput(
+        new = step(params, carry, PFStepInput(
             z=normals[:, t].transpose(1, 2), u=u[:, t],
             y=observations[:, t], weight=step_weights[:, t],
             in_window=in_window[:, t], t=t))
+        if step_valid is not None:
+            act = step_valid[:, t] > 0
+            new = PFCarry(*[torch.where(
+                act.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
+                for n, o in zip(new, carry)])
+        carry = new
     return PFOutput(statistics=carry.statistics,
                     log_weights=carry.log_weights,
                     particles=carry.particles,

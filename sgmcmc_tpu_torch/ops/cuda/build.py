@@ -23,7 +23,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "sgmcmc_tpu_torch"
 # --fmad=false: the fused window's model body rounds after every operation,
 # as PyTorch's elementwise operators do, so kernel and plain version pick
-# the same ancestors (see the note at the top of csrc/fused_window.cu).
+# the same ancestors (see the note at the top of csrc/fused_window.cuh).
 # It changes nothing in the resample-apply kernel, which only copies.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false",

@@ -4,17 +4,21 @@ Counterpart of ``sgmcmc_tpu/ops/pallas/fused_pf.py``.  The whole W-step
 window (weight normalisation and CDF, systematic resampling of state and
 statistics, proposal, reweighting, additive-statistic update and the
 log-likelihood) runs in one launch of the kernel in
-``csrc/fused_window.cu``, which replaces the TPU kernel
-``_fused_window_kernel``.  ``fused_window`` launches it for CUDA tensors
-and runs ``fused_window_reference``, the same function in plain PyTorch,
-for CPU tensors.
+``csrc/fused_window.cuh`` (one ``csrc/fused_window_<body>.cu`` per model
+body), which replaces the TPU kernel ``_fused_window_kernel``.
+``fused_window`` launches it for CUDA tensors and runs
+``fused_window_reference``, the same function in plain PyTorch, for CPU
+tensors.
 
-Two options of the TPU kernel come with it: proposal normals generated
+Three options of the TPU kernel come with it: proposal normals generated
 inside the kernel from a per-chain seed (the JAX package's
 ``rng="kernel"``; here the Philox generator of ``ops/cuda/philox.py``)
-instead of a ``[C, W, Z, N]`` array, and the ESS gate
-(``ess_threshold``), under which a chain resamples only at steps whose
-effective sample size falls below ``ess_threshold * N``.
+instead of a ``[C, W, Z, N]`` array; the ESS gate (``ess_threshold``),
+under which a chain resamples only at steps whose effective sample size
+falls below ``ess_threshold * N``; and the valid gate (``vs``, the JAX
+package's ``valid_gate``), under which a chain keeps its carries and
+log-weights through the steps it marks invalid (the padded tails of the
+multi-sequence windows).
 
 The kernel library is built at first use by ``ops/cuda/build.py`` and
 bound with ``ctypes``.
@@ -33,7 +37,8 @@ from .philox import philox_normals_reference
 from .resample import ancestors, cdf_parts
 
 # model bodies with an entry point in the library (FusedModel.body)
-_BODIES = ("svm", "lgssm_optimal", "lgssm_prior")
+_BODIES = ("svm", "lgssm_optimal", "lgssm_prior", "garch_optimal",
+           "garch_prior", "svjm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +49,12 @@ class FusedModel:
     elementwise functions over lists of ``[C, N]`` tensors (one per state
     dimension / normal / statistic) with parameters as a list of ``[C, 1]``
     columns of ``pack_params(params) -> [C, P]``.  ``body`` names the CUDA
-    twin of the same body (``csrc/<body>_body.cuh``), whose entry point is
-    ``sgmcmc_fused_window_<body>``.
+    twin of the same body (``csrc/<model>_body.cuh``), whose entry point is
+    ``sgmcmc_fused_window_<body>``.  ``init(z, prior_mean, prior_var)``
+    makes the initial state, a list of D ``[C, N]`` tensors, from the Z
+    initial normals and the ``[C, 1]`` prior moments; without it every
+    state dimension is Gaussian from the first D normals.  ``n_noise`` = Z
+    (normals per particle and step) defaults to D.
     """
     n_state: int
     n_stat: int
@@ -56,6 +65,7 @@ class FusedModel:
     stat: Callable
     body: str
     n_noise: int | None = None
+    init: Callable | None = None
 
     @property
     def noise_dims(self) -> int:
@@ -69,16 +79,16 @@ def _library() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     for body in _BODIES:
         fn = getattr(lib, f"sgmcmc_fused_window_{body}")
-        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, ctypes.c_float,
+        fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, ctypes.c_float,
                        ctypes.c_double, P]
         fn.restype = I
         smem = getattr(lib, f"sgmcmc_fused_window_{body}_smem")
-        smem.argtypes = [I, I]
+        smem.argtypes = [I, I, I]
         smem.restype = ctypes.c_size_t
     return lib
 
 
-def _check_inputs(model, pvec, x0, normals, seeds, ys, weights, xi):
+def _check_inputs(model, pvec, x0, normals, seeds, ys, weights, xi, vs):
     C, W = ys.shape
     D, Z, P = model.n_state, model.noise_dims, model.n_param
     N = x0.shape[-1]
@@ -86,9 +96,10 @@ def _check_inputs(model, pvec, x0, normals, seeds, ys, weights, xi):
         raise ValueError("pass exactly one of normals (host normals) and "
                          "seeds (in-kernel normals)")
     want = {"pvec": (C, P), "x0": (C, D, N), "normals": (C, W, Z, N),
-            "seeds": (C,), "ys": (C, W), "weights": (C, W), "xi": (C, W)}
+            "seeds": (C,), "ys": (C, W), "weights": (C, W), "xi": (C, W),
+            "vs": (C, W)}
     got = {"pvec": pvec, "x0": x0, "normals": normals, "seeds": seeds,
-           "ys": ys, "weights": weights, "xi": xi}
+           "ys": ys, "weights": weights, "xi": xi, "vs": vs}
     for name, t in got.items():
         if t is None:
             continue
@@ -111,7 +122,8 @@ def fused_window(model: FusedModel, pvec: torch.Tensor, x0: torch.Tensor,
                  normals: torch.Tensor | None, ys: torch.Tensor,
                  weights: torch.Tensor, xi: torch.Tensor,
                  lambduh: float = 1.0, ess_threshold: float | None = None,
-                 seeds: torch.Tensor | None = None) -> torch.Tensor:
+                 seeds: torch.Tensor | None = None,
+                 vs: torch.Tensor | None = None) -> torch.Tensor:
     """Run the fused window for a batch of chains: ``[C, H+1]``, the
     weight-averaged statistic then the log-likelihood.
 
@@ -121,22 +133,25 @@ def fused_window(model: FusedModel, pvec: torch.Tensor, x0: torch.Tensor,
     (the draws of :func:`~.philox.philox_normals` of stream 0), ``ys``,
     ``weights`` and the systematic offsets ``xi``, each ``[C, W]``; all
     float32 except the seeds, and contiguous.  ``ess_threshold`` turns on
-    the ESS gate.  CUDA tensors launch the kernel on the current stream (no
-    synchronisation) and count one in ``fused_window.launches``; CPU tensors
-    run :func:`fused_window_reference`.
+    the ESS gate, ``vs [C, W]`` the valid gate (step t of chain c runs
+    only where ``vs[c, t] > 0``).  CUDA tensors launch the kernel on the
+    current stream (no synchronisation) and count one in
+    ``fused_window.launches``; CPU tensors run
+    :func:`fused_window_reference`.
     """
-    _check_inputs(model, pvec, x0, normals, seeds, ys, weights, xi)
+    _check_inputs(model, pvec, x0, normals, seeds, ys, weights, xi, vs)
     if ess_threshold is not None and ess_threshold < 0:
         raise ValueError(f"ess_threshold={ess_threshold} must be >= 0")
     if x0.device.type == "cpu":
         return fused_window_reference(model, pvec, x0, normals, ys, weights,
-                                      xi, lambduh, ess_threshold, seeds)
+                                      xi, lambduh, ess_threshold, seeds, vs)
     if x0.device.type != "cuda":
         raise ValueError(f"no fused window for device {x0.device}")
     C, W = ys.shape
     N = x0.shape[-1]
     lib = _library()
-    smem = getattr(lib, f"sgmcmc_fused_window_{model.body}_smem")(W, N)
+    smem = getattr(lib, f"sgmcmc_fused_window_{model.body}_smem")(
+        W, N, int(vs is not None))
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"N={N}, W={W} needs {smem} bytes of shared memory per block; "
@@ -152,6 +167,7 @@ def fused_window(model: FusedModel, pvec: torch.Tensor, x0: torch.Tensor,
                    None if normals is None else normals.data_ptr(),
                    None if seeds is None else seeds.data_ptr(),
                    ys.data_ptr(), weights.data_ptr(), xi.data_ptr(),
+                   None if vs is None else vs.data_ptr(),
                    out.data_ptr(), C, W, N, float(lambduh), thr, stream)
     check_launch(rc, "fused window")
     fused_window.launches += 1
@@ -175,7 +191,8 @@ def _ll_increment(m, tot, ok, log_n):
 
 def fused_window_reference(model: FusedModel, pvec, x0, normals, ys,
                            weights, xi, lambduh: float = 1.0,
-                           ess_threshold: float | None = None, seeds=None):
+                           ess_threshold: float | None = None, seeds=None,
+                           vs=None):
     """Plain-PyTorch version of the fused window kernel (same inputs and
     output as :func:`fused_window`), step by step in the kernel's order:
     float64 prefix sum (``torch.cumsum``), ancestors by
@@ -184,7 +201,10 @@ def fused_window_reference(model: FusedModel, pvec, x0, normals, ys,
     :func:`~.philox.philox_normals_reference` (stream 0, the kernel's
     layout).  The ESS gate follows the JAX package's fused kernel: the sums
     of w and w^2 in float64, and the carried log-weights
-    ``log w - m - log tot + log N`` of a chain that does not resample."""
+    ``log w - m - log tot + log N`` of a chain that does not resample.
+    The valid gate follows it too: on a step with ``vs <= 0`` the chain's
+    carries and log-weights stay as they were, while the deferred
+    log-likelihood increment of the step before is still added."""
     C, D, N = x0.shape
     W = ys.shape[1]
     H, Z = model.n_stat, model.noise_dims
@@ -219,20 +239,39 @@ def fused_window_reference(model: FusedModel, pvec, x0, normals, ys,
         z = list(z_t.unbind(1))
         y_t = ys[:, t:t + 1]
         x_new = model.propose(pv, z, xr, y_t)
-        logw = model.reweight(pv, xr, x_new, y_t)
+        logw_new = model.reweight(pv, xr, x_new, y_t)
         if ess_threshold is not None:
-            logw = logw + torch.where(do_res, 0.0, carried)
+            logw_new = logw_new + torch.where(do_res, 0.0, carried)
         h = torch.stack(model.stat(pv, xr, x_new, y_t), 1)      # [C, H, N]
         w_t = weights[:, t, None, None]
         if lambduh == 1.0:
             s_new = Vr[:, D:] + w_t * h
         else:
             s_new = lam * Vr[:, D:] + om * S_bar[..., None] + w_t * h
-        V = torch.cat([torch.stack(x_new, 1), s_new], 1)
+        V_new = torch.cat([torch.stack(x_new, 1), s_new], 1)
+        if vs is None:
+            V, logw = V_new, logw_new
+        else:
+            act = vs[:, t:t + 1] > 0                              # [C, 1]
+            V = torch.where(act[..., None], V_new, V)
+            logw = torch.where(act, logw_new, logw)
     _, m, w, tot, ok = cdf_parts(logw)
     ll = ll + weights[:, W - 1] * _ll_increment(m, tot, ok, log_n)
     stat = _weighted_mean(V[:, D:], w, tot, ok, n_t)
     return torch.cat([stat, ll[:, None]], 1)
+
+
+def initial_state(model: FusedModel, z0: torch.Tensor,
+                  prior_mean: torch.Tensor,
+                  prior_var: torch.Tensor) -> torch.Tensor:
+    """Initial state ``x0 [C, D, N]`` from the normals ``z0 [C, Z, N]`` and
+    the per-chain prior moments ``[C]``: ``model.init`` where the model has
+    one, else ``prior_mean + sqrt(prior_var) * z0[:, :D]``."""
+    if model.init is None:
+        return (prior_mean[:, None, None]
+                + torch.sqrt(prior_var)[:, None, None] * z0[:, :model.n_state])
+    return torch.stack(model.init(list(z0.unbind(1)), prior_mean[:, None],
+                                  prior_var[:, None]), 1)
 
 
 def fused_pf_score(model: FusedModel, params, window: torch.Tensor,
@@ -240,18 +279,21 @@ def fused_pf_score(model: FusedModel, params, window: torch.Tensor,
                    normals: torch.Tensor | None, xi: torch.Tensor,
                    prior_mean: torch.Tensor, prior_var: torch.Tensor,
                    lambduh: float = 1.0, ess_threshold: float | None = None,
-                   seeds: torch.Tensor | None = None):
+                   seeds: torch.Tensor | None = None,
+                   step_valid: torch.Tensor | None = None):
     """Chain-batched fused buffered-PF score: ``(mean_stat [C, H],
     loglik [C])`` for windows ``[C, W]`` with the draws ``z0 [C, Z, N]``,
     ``xi [C, W]`` and either ``normals [C, W, Z, N]`` or, for normals
     generated in the kernel, ``seeds [C]`` (``normals=None``); the initial
-    state is ``prior_mean + sqrt(prior_var) * z0`` per chain."""
-    D, H = model.n_state, model.n_stat
-    x0 = (prior_mean[:, None, None]
-          + torch.sqrt(prior_var)[:, None, None] * z0[:, :D]).contiguous()
+    state is :func:`initial_state`.  ``step_valid [C, W]`` turns on the
+    valid gate."""
+    H = model.n_stat
+    x0 = initial_state(model, z0, prior_mean, prior_var).contiguous()
     out = fused_window(model, model.pack_params(params).contiguous(), x0,
                        None if normals is None else normals.contiguous(),
                        window.contiguous(), step_weights.contiguous(),
                        xi.contiguous(), lambduh, ess_threshold,
-                       None if seeds is None else seeds.contiguous())
+                       None if seeds is None else seeds.contiguous(),
+                       None if step_valid is None
+                       else step_valid.contiguous())
     return out[:, :H], out[:, H]

@@ -109,3 +109,37 @@ def slice_window(observations: torch.Tensor, window_start: torch.Tensor,
     ``window_start [C]``."""
     idx = window_start[:, None] + torch.arange(W, device=window_start.device)
     return observations[idx]
+
+
+def sequence_window(start: torch.Tensor, lengths: torch.Tensor, S: int,
+                    buffer_length: int, T_max: int,
+                    dtype=torch.float32) -> SubsequenceWindow:
+    """Windows of rows that each read one sequence of a packed batch
+    (``make_seq_pf_score_fn``'s layout): ``lengths [R]`` are the rows'
+    sequence lengths T_i, ``start [R]`` their subsequence starts and
+    ``T_max`` the packed length.
+
+    * ``S == -1``: the whole padded sequence, weight 1 on ``t < T_i``
+      (weights ``[R, T_max]`` are all ones, ``tL = T_i``);
+    * otherwise the coverage weights ``(T_i-S+1) / n(t)`` of the S steps
+      from ``start``, in the whole padded sequence (``buffer_length ==
+      -1``) or in a window of ``W = S + 2B`` steps from
+      ``clip(start - B, 0, T_i - W)``.
+    """
+    zero = torch.zeros_like(lengths)
+    if S == -1:
+        ones = torch.ones((lengths.shape[0], T_max), dtype=dtype,
+                          device=lengths.device)
+        return SubsequenceWindow(zero, zero, lengths, ones)
+    t = start[:, None] + torch.arange(S, device=start.device)
+    T_i = lengths[:, None]
+    n_cov = torch.minimum(torch.clamp(t + 1, max=S),
+                          torch.minimum(T_i - S + 1, T_i - t))
+    weights = (T_i - S + 1).to(dtype) / n_cov.to(dtype)
+    if buffer_length == -1:
+        return SubsequenceWindow(zero, start, start + S, weights)
+    W = S + 2 * buffer_length
+    window_start = torch.minimum(torch.clamp(start - buffer_length, min=0),
+                                 lengths - W)
+    t1 = start - window_start
+    return SubsequenceWindow(window_start, t1, t1 + S, weights)

@@ -1,8 +1,8 @@
 """Distribution log-pdfs and samplers used by the priors.
 
 Counterpart of ``sgmcmc_tpu/utils/distributions.py`` for the functions the
-SVM prior needs.  Batched over leading axes; samplers take an explicit
-``torch.Generator``.
+ported priors (SVM, LGSSM, GARCH, SVJM) need.  Batched over leading axes;
+samplers take an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -62,3 +62,41 @@ def wishart_logpdf(X: torch.Tensor, df, scale: torch.Tensor) -> torch.Tensor:
     return (0.5 * (df - n - 1) * logdet_X - 0.5 * trace
             - 0.5 * df * n * math.log(2.0) - 0.5 * df * logdet_S
             - log_mgamma)
+
+
+def invgamma_logpdf(x: torch.Tensor, shape, scale) -> torch.Tensor:
+    """log pdf of InvGamma(shape, scale) at x."""
+    shape = torch.as_tensor(shape, dtype=x.dtype, device=x.device)
+    scale = torch.as_tensor(scale, dtype=x.dtype, device=x.device)
+    return (shape * torch.log(scale) - torch.lgamma(shape)
+            - (shape + 1.0) * torch.log(x) - scale / x)
+
+
+def beta_logpdf(x: torch.Tensor, a, b) -> torch.Tensor:
+    """log pdf of Beta(a, b) at x."""
+    a = torch.as_tensor(a, dtype=x.dtype, device=x.device)
+    b = torch.as_tensor(b, dtype=x.dtype, device=x.device)
+    betaln = torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b)
+    return (a - 1.0) * torch.log(x) + (b - 1.0) * torch.log1p(-x) - betaln
+
+
+def _gamma(generator: torch.Generator, shape, batch_shape, dtype, device):
+    conc = torch.as_tensor(shape, dtype=dtype, device=device).expand(
+        tuple(batch_shape)).contiguous()
+    return torch._standard_gamma(conc, generator=generator)
+
+
+def sample_invgamma(generator: torch.Generator, shape, scale,
+                    batch_shape: tuple = (), dtype=torch.float32,
+                    device=None) -> torch.Tensor:
+    """InvGamma(shape, scale) samples [*batch_shape]: scale / Gamma(shape)."""
+    g = _gamma(generator, shape, batch_shape, dtype, device)
+    return torch.as_tensor(scale, dtype=dtype, device=device) / g
+
+
+def sample_beta(generator: torch.Generator, a, b, batch_shape: tuple = (),
+                dtype=torch.float32, device=None) -> torch.Tensor:
+    """Beta(a, b) samples [*batch_shape] via two gammas."""
+    x = _gamma(generator, a, batch_shape, dtype, device)
+    y = _gamma(generator, b, batch_shape, dtype, device)
+    return x / (x + y)

@@ -165,9 +165,11 @@ def test_resamplers_match_jax_on_shared_draws():
 def test_library_builds_every_kernel_source():
     """One library from every csrc/*.cu, named by a hash of the sources;
     the sources ship with the package, so an installed port can build."""
-    assert [p.name for p in build.sources()] == ["fused_window.cu",
-                                                 "philox_normals.cu",
-                                                 "resample_apply.cu"]
+    assert [p.name for p in build.sources()] == [
+        "cuda_error.cu", "fused_window_garch_optimal.cu",
+        "fused_window_garch_prior.cu", "fused_window_lgssm_optimal.cu",
+        "fused_window_lgssm_prior.cu", "fused_window_svjm.cu",
+        "fused_window_svm.cu", "philox_normals.cu", "resample_apply.cu"]
     assert build.library_path().parent == build.BUILD_DIR
     pyproject = Path(__file__).resolve().parents[1] / "pyproject.toml"
     globs = tomllib.loads(pyproject.read_text())[
