@@ -88,6 +88,13 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      exchange-rate demo's SGLD setting (S=16, B=4, one sequence per
      gradient) and ``SeqSVMSampler`` at 1024 chains with its LD setting
      (S=-1, every sequence: K1 with the valid gate).
+ 18. K1's frame against its plain version at C=256, bitwise (NaN equal to
+     NaN), with host and in-kernel normals: at N = 1000, 100, 777, 4096 and
+     the largest N the card's shared memory allows; on degenerate weights
+     (every particle's log-weight -inf after an observation of 1e30), with
+     and without the ESS gate; and with the valid gate on interior invalid
+     runs (invalid from t=0, in the middle, at the end), also with the ESS
+     gate and lambda = 0.95.
 The last three lines are the kernel report (JSON), the card's
 ``nvidia-smi`` name and power limit, and the result (JSON).
 Exits non-zero without a result when no CUDA device is available.
@@ -131,6 +138,10 @@ K1_BODY_OPS.update(garch_optimal=61, garch_prior=53, svjm=99)
 # Operations of the standalone generator per pair of normals (see
 # csrc/philox_normals.cu).
 PHILOX_PAIR_OPS = 98 + 2 * 14
+# The lengths of the Seq fits' 8 sequences (phase 17): 200-1000 steps, so
+# that the LD fit runs K1 at W = 941 with 68% of its row-steps valid;
+# scripts/time_fused_window.py times K1 at that shape too.
+SEQ_LENGTHS = (508, 579, 383, 763, 807, 941, 760, 402)
 
 
 def phase(name, msg):
@@ -145,8 +156,9 @@ def smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def window_inputs(gen, C, ys, svm, subsequence, buffered):
-    """Kernel inputs for C chains on random buffered windows of ``ys``."""
+def window_inputs(gen, C, ys, svm, subsequence, buffered, n=N):
+    """Kernel inputs for C chains of n particles on random buffered windows
+    of ``ys``."""
     dev = ys.device
     u = torch.rand((C, 3), generator=gen, device=dev)
     params = svm.SVMParams(A=(0.5 + 0.45 * u[:, 0]).reshape(C, 1, 1),
@@ -156,9 +168,9 @@ def window_inputs(gen, C, ys, svm, subsequence, buffered):
     win = subsequence.buffered_window(start, S, B, T)
     window = subsequence.slice_window(ys, win.window_start, W)[..., 0]
     step_w, _ = buffered.window_weights(win.t1, win.tL, win.weights, W)
-    z0 = torch.randn((C, 1, N), generator=gen, device=dev)
+    z0 = torch.randn((C, 1, n), generator=gen, device=dev)
     x0 = torch.sqrt(svm.stationary_variance(params))[:, None, None] * z0
-    normals = torch.randn((C, W, 1, N), generator=gen, device=dev)
+    normals = torch.randn((C, W, 1, n), generator=gen, device=dev)
     xi = torch.rand((C, W), generator=gen, device=dev)
     return (svm._fused_pack(params).contiguous(), x0.contiguous(), normals,
             window.contiguous(), step_w.contiguous(), xi)
@@ -174,6 +186,32 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=200, rounds=5):
+    """Device time per call of fn: a CUDA graph of reps calls, replayed
+    and timed by CUDA events (no host launch cost)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[rounds // 2]
 
 
 def bound_ms(nbytes, ops):
@@ -388,6 +426,15 @@ def main():
             msg += (f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, PyTorch "
                     f"call {lib:.4f} ms, bound {bnd:.4f} ms by {by} "
                     f"({nbytes / 1e6:.1f} MB) ({card})")
+            if C == 1:
+                # at C=1 both sides are one host call: the device time
+                # alone, from a CUDA graph of 200 launches
+                g_k = graph_ms(lambda: resample.resample_apply(pos, cdf, vals))
+                g_l = graph_ms(lambda: resample.resample_apply_reference(
+                    pos, cdf, vals))
+                ra_times[label].update(graph_ms=g_k, library_graph_ms=g_l)
+                msg += (f"; device time per call in a CUDA graph of 200: "
+                        f"kernel {g_k:.4f} ms, PyTorch call {g_l:.4f} ms")
         phase("6 resample-apply", msg)
         if not same:
             raise AssertionError(f"resample-apply differs from its plain "
@@ -1008,9 +1055,8 @@ def main():
     del z0, normals, outs
 
     # 17. the valid gate and the Seq samplers
-    n_seq = 8
-    lengths = torch.randint(200, 1001, (n_seq,), generator=gen,
-                            device=dev).tolist()
+    lengths = list(SEQ_LENGTHS)
+    n_seq = len(lengths)
     seqs = {m: [registry.get_model(m).generate_data(gen, truth, T_i)[0]
                 for T_i in lengths]
             for m, truth in (("svm", svm.from_scalars(0.9, 0.5, 1.0,
@@ -1152,6 +1198,72 @@ def main():
                            svm.from_scalars(0.5, 1.0, 2.0),
                            (ITERS, 0, ITERS), "17 seq fit", C=1024, **ld_kw)[0]
 
+    # 18. K1's frame where the fits above do not take it, bitwise (NaN
+    # equal to NaN): other N (partial threads, N below the block's thread
+    # count, an odd N, the shared-memory layout up to the largest N the
+    # card's shared memory allows), degenerate weights (the ok-false
+    # branch), and the valid gate on interior invalid runs with the ESS gate
+    # and lambda = 0.95, each with host and in-kernel normals
+    smem_of = getattr(fused_pf._library(), "sgmcmc_fused_window_svm_smem")
+    lo, hi = 1, 1 << 20                     # the largest N that fits
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if smem_of(W, mid, 0) <= build.SMEM_LIMIT:
+            lo = mid
+        else:
+            hi = mid - 1
+    n_max = lo
+
+    def frame_check(what, n, seeded, degen=False, gaps=False, lam=1.0,
+                    ess=None):
+        args = window_inputs(gen, C_CHECK, ys, svm, subsequence, buffered, n)
+        window, step_w = args[3].clone(), args[4]
+        vs = None
+        if gaps:
+            t = torch.arange(W, device=dev)[None]
+            r = torch.arange(C_CHECK, device=dev)[:, None] % 3
+            vs = (~(((r == 0) & (t < 7)) | ((r == 1) & (t >= 20) & (t < 31))
+                    | ((r == 2) & (t >= W - 9)))).float()
+            step_w = (step_w * vs).contiguous()
+        if degen:
+            window[::3, W // 2] = 1e30
+        args = (args[0], args[1], None if seeded else args[2], window,
+                step_w, args[5])
+        sd = torch.randint(-2 ** 63, 2 ** 63 - 1, (C_CHECK,), generator=gen,
+                           dtype=torch.int64, device=dev) if seeded else None
+        kw_f = dict(lambduh=lam, ess_threshold=ess, seeds=sd, vs=vs)
+        out_k = fused_pf.fused_window(svm.FUSED, *args, **kw_f)
+        out_r = fused_pf.fused_window_reference(svm.FUSED, *args, **kw_f)
+        torch.cuda.synchronize()
+        eq = (out_k == out_r) | (torch.isnan(out_k) & torch.isnan(out_r))
+        fin = torch.isfinite(out_k) & torch.isfinite(out_r)
+        err = float((out_k - out_r).abs()[fin].max())
+        n_diff = int((~eq).any(1).sum())
+        n_inf = int((~torch.isfinite(out_k)).any(1).sum())
+        what = what + (", in-kernel" if seeded else ", host") + " normals"
+        phase("18 K1 frame", f"{what}: C={C_CHECK} N={n} W={W} lambda={lam} "
+              f"ess={ess}: max |kernel - plain| = {err!r} over the finite "
+              f"entries, chains that differ {n_diff}, chains with "
+              f"non-finite outputs {n_inf}")
+        if n_diff or (degen != (n_inf > 0)):
+            raise AssertionError(f"K1 ({what}) differs from its plain "
+                                 f"version in {n_diff} chains")
+        return err
+
+    frame_err = 0.0
+    for what, n, kw_c in (
+            ("N=1000", 1000, {}), ("N=100", 100, {}), ("N=777", 777, {}),
+            ("N=4096", 4096, {}), (f"N={n_max} (largest)", n_max, {}),
+            ("degenerate weights at step W/2", N, dict(degen=True)),
+            ("degenerate weights, ESS gate", N,
+             dict(degen=True, ess=0.5)),
+            ("valid gate, interior invalid runs", N, dict(gaps=True)),
+            ("valid gate, interior runs, ESS gate, lambda=0.95", N,
+             dict(gaps=True, ess=0.5, lam=0.95))):
+        for seeded in (False, True):
+            frame_err = max(frame_err, frame_check(what, n, seeded, **kw_c))
+    k1_err = max(k1_err, frame_err)
+
     main_shape = ra_times["K2b"]
     k1_tpu = "sgmcmc_tpu/ops/pallas/fused_pf.py:121"
 
@@ -1162,11 +1274,21 @@ def main():
             "fused_window.cuh", f"fused_window_{body}.cu",
             f"{model}_body.cuh") + extra)
 
+    def occupancy(name_k, body):
+        """The variant's registers, resident blocks per SM and shared
+        memory per block at N, as the CUDA runtime reports them."""
+        occ = fused_pf.fused_window_occupancy(
+            body, rng="rng_kernel" in name_k, ess_gate="ess_gate" in name_k,
+            valid_gate="valid_gate" in name_k, N=N)
+        return dict(registers=occ["registers"],
+                    blocks_per_sm=occ["blocks_per_sm"],
+                    smem_bytes_per_block=occ["smem_bytes"])
+
     def k1_entry(name_k, body, replaces, launches, numbers, *extra):
         return {"name": f"fused_window_{name_k}", "route": "cuda",
                 "source": k1_src(body, *extra),
                 "replaces": k1_tpu + replaces, "launches": launches,
-                **numbers, "library_ms": None}
+                **numbers, "library_ms": None, **occupancy(name_k, body)}
 
     def body_of(name_k):
         return name_k.replace("_rng_kernel", "").replace("_seq", "")

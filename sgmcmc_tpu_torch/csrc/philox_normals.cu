@@ -10,12 +10,18 @@
 // in-kernel-generator path with it (stream 1), and the checks on the card
 // hold it against its plain PyTorch version.
 //
-// What bounds it on the card: operations.  One thread computes one pair of
-// particles (2k, 2k+1): one Philox4x32-10 call (10 rounds of 2 mul.hi,
-// 2 mul.lo and 4 xor, 9 key bumps of 2 adds: 98 integer operations) and two
-// Box-Muller transforms (mask, convert, add, scale twice, then -2x, log,
-// sqrt, 2 pi x, cos and the product: 14 each, log and cos counted as one).
-// It writes 4 bytes per normal, coalesced as one 8-byte store per thread.
+// What bounds it on the card: its output bytes (4 per normal), with about
+// as many integer and float operations per byte as the card can issue.
+// One Philox4x32-10 call (10 rounds of 2 mul.hi, 2 mul.lo and 4 xor, 9
+// key bumps of 2 adds: 98 integer operations) gives the words of a pair
+// of particles (2k, 2k+1), and two Box-Muller transforms (mask, convert,
+// add, scale twice, then -2x, log, sqrt, 2 pi x, cos and the product: 14
+// each, log and cos counted as one) their normals.  The index math is in
+// 32 bits and outside the per-pair work: a block's row (c, t) comes from
+// blockIdx.x (one 32-bit division by W), its noise dimension q from
+// blockIdx.z and its pairs from blockIdx.y, and each thread computes
+// kPairs adjacent pairs and writes them with 16-byte stores where the row
+// is aligned.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -24,49 +30,68 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kPairs = 2;   // pairs of particles per thread
 
 template <bool kWords>
 __global__ void __launch_bounds__(kThreads)
 philox_kernel(const long long* __restrict__ seeds, int W, int Z, int N,
-              int t0, int s, long long n_pairs, void* __restrict__ out) {
-  const long long g = static_cast<long long>(blockIdx.x) * kThreads
-                      + threadIdx.x;
-  if (g >= n_pairs) return;
+              int t0, int s, void* __restrict__ out) {
+  const unsigned r = blockIdx.x;                // c * W + t
+  const unsigned c = r / static_cast<unsigned>(W);
+  const int t = static_cast<int>(r - c * static_cast<unsigned>(W));
+  const int q = blockIdx.z;
   const int P = (N + 1) >> 1;
-  const int k = static_cast<int>(g % P);
-  const long long row = g / P;                  // (c * W + t) * Z + q
-  const int q = static_cast<int>(row % Z);
-  const int t = static_cast<int>((row / Z) % W);
-  const long long c = row / (static_cast<long long>(Z) * W);
+  const int k0 = (blockIdx.y * kThreads + threadIdx.x) * kPairs;
+  if (k0 >= P) return;
   const unsigned long long seed = static_cast<unsigned long long>(seeds[c]);
-  const uint4 r = philox_pair(static_cast<uint32_t>(seed),
-                              static_cast<uint32_t>(seed >> 32), k, t0 + t,
-                              q, s);
-  const long long i = row * N + 2 * k;          // flat index of particle 2k
-  const bool two = 2 * k + 1 < N;
-  const bool vec = two && (N % 2 == 0);         // i even: aligned stores
+  const uint32_t key0 = static_cast<uint32_t>(seed);
+  const uint32_t key1 = static_cast<uint32_t>(seed >> 32);
+  const size_t base = (static_cast<size_t>(r) * Z + q) * N;  // row start
+  uint4 w[kPairs];
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j)
+    if (k0 + j < P) w[j] = philox_pair(key0, key1, k0 + j, t0 + t, q, s);
+  const int i = 2 * k0;                         // first particle
+  // all kPairs pairs inside the row, at a 16-byte aligned address
+  const bool vec = i + 2 * kPairs <= N
+      && ((base + i) * (kWords ? 2 : 1)) % 4 == 0
+      && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   if (kWords) {
-    int* o = static_cast<int*>(out) + 2 * i;
+    int* o = static_cast<int*>(out) + 2 * (base + i);
     if (vec) {
-      *reinterpret_cast<int4*>(o) = make_int4(
-          static_cast<int>(r.x), static_cast<int>(r.y),
-          static_cast<int>(r.z), static_cast<int>(r.w));
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j)
+        reinterpret_cast<int4*>(o)[j] = make_int4(
+            static_cast<int>(w[j].x), static_cast<int>(w[j].y),
+            static_cast<int>(w[j].z), static_cast<int>(w[j].w));
     } else {
-      o[0] = static_cast<int>(r.x);
-      o[1] = static_cast<int>(r.y);
-      if (two) {
-        o[2] = static_cast<int>(r.z);
-        o[3] = static_cast<int>(r.w);
+#pragma unroll
+      for (int j = 0; j < kPairs; ++j) {
+        const int ia = i + 2 * j;
+        if (ia >= N) break;
+        o[4 * j] = static_cast<int>(w[j].x);
+        o[4 * j + 1] = static_cast<int>(w[j].y);
+        if (ia + 1 < N) {
+          o[4 * j + 2] = static_cast<int>(w[j].z);
+          o[4 * j + 3] = static_cast<int>(w[j].w);
+        }
       }
     }
   } else {
-    float* o = static_cast<float*>(out) + i;
-    const float z0 = box_muller(r.x, r.y);
+    float* o = static_cast<float*>(out) + base + i;
+    float z[2 * kPairs];
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      z[2 * j] = box_muller(w[j].x, w[j].y);
+      z[2 * j + 1] = box_muller(w[j].z, w[j].w);
+    }
     if (vec) {
-      *reinterpret_cast<float2*>(o) = make_float2(z0, box_muller(r.z, r.w));
+      static_assert(kPairs == 2, "one float4 store per thread");
+      *reinterpret_cast<float4*>(o) = make_float4(z[0], z[1], z[2], z[3]);
     } else {
-      o[0] = z0;
-      if (two) o[1] = box_muller(r.z, r.w);
+#pragma unroll
+      for (int j = 0; j < 2 * kPairs; ++j)
+        if (i + j < N) o[j] = z[j];
     }
   }
 }
@@ -74,14 +99,16 @@ philox_kernel(const long long* __restrict__ seeds, int W, int Z, int N,
 template <bool kWords>
 int launch(const long long* seeds, void* out, int C, int W, int Z, int N,
            int t0, int s, void* stream) {
-  const long long n_pairs = static_cast<long long>(C) * W * Z
-                            * ((N + 1) / 2);
-  const long long blocks = (n_pairs + kThreads - 1) / kThreads;
-  if (blocks == 0) return 0;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  philox_kernel<kWords><<<static_cast<unsigned>(blocks), kThreads, 0,
+  const long long rows = static_cast<long long>(C) * W;
+  const int P = (N + 1) / 2;
+  const int tiles = (P + kThreads * kPairs - 1) / (kThreads * kPairs);
+  if (rows == 0) return 0;
+  if (rows > 0x7fffffffLL || tiles > 65535 || Z > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(rows), tiles, Z);
+  philox_kernel<kWords><<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      seeds, W, Z, N, t0, s, n_pairs, out);
+      seeds, W, Z, N, t0, s, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -85,6 +85,9 @@ def _library() -> ctypes.CDLL:
         smem = getattr(lib, f"sgmcmc_fused_window_{body}_smem")
         smem.argtypes = [I, I, I]
         smem.restype = ctypes.c_size_t
+        occ = getattr(lib, f"sgmcmc_fused_window_{body}_occupancy")
+        occ.argtypes = [I, I, I, I, P]
+        occ.restype = I
     return lib
 
 
@@ -175,6 +178,26 @@ def fused_window(model: FusedModel, pvec: torch.Tensor, x0: torch.Tensor,
 
 
 fused_window.launches = 0
+
+
+def fused_window_occupancy(body: str, rng: bool, ess_gate: bool,
+                           valid_gate: bool, N: int) -> dict:
+    """What the CUDA runtime reports for one variant of the fused window
+    on the current device at ``N`` particles (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``): registers and
+    local (spill) bytes per thread, dynamic shared memory per block,
+    resident blocks per SM, and which of threads, registers or shared
+    memory sets that count.  Needs a CUDA device."""
+    buf = (ctypes.c_int * 7)()
+    rc = getattr(_library(), f"sgmcmc_fused_window_{body}_occupancy")(
+        int(rng), int(ess_gate), int(valid_gate), N, ctypes.addressof(buf))
+    check_launch(rc, "fused window occupancy query")
+    blocks, bare, regs, local, smem, threads, sm_threads = list(buf)
+    set_by = ("shared memory" if blocks < bare
+              else "threads" if bare * threads >= sm_threads
+              else "registers")
+    return dict(registers=regs, local_bytes=local, smem_bytes=smem,
+                blocks_per_sm=blocks, set_by=set_by)
 
 
 def _weighted_mean(S, w, tot, ok, n_t):

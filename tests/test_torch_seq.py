@@ -64,11 +64,14 @@ def window_draws(seed, C, N, W, T_valid):
 def test_valid_gate_matches_jax_fused_kernel(ess):
     """K1's plain version with ``vs`` against the JAX kernel with
     ``valid_gate=True`` (with and without the ESS gate), one chain fully
-    valid and one padded after step 7.  Statistic rtol=atol=1e-4, loglik
-    rtol 1e-5."""
-    C, N, W = 2, 64, 12
-    arrays = window_draws(1, C, N, W, [W, 7])
+    valid, one padded after step 7 and one with an interior invalid run
+    (valid 0-3, invalid 4-6, valid 7-11, zero weights on the invalid
+    steps).  Statistic rtol=atol=1e-4, loglik rtol 1e-5."""
+    C, N, W = 3, 64, 12
+    arrays = window_draws(1, C, N, W, [W, 7, W])
     pvec, x0, normals, ys, weights, xi, vs = arrays
+    vs[2, 4:7] = 0.0
+    weights[2, 4:7] = 0.0
     out = fused_pf.fused_window(
         svm.FUSED, *[torch.from_numpy(a) for a in arrays[:6]],
         ess_threshold=ess, vs=torch.from_numpy(vs)).numpy()
@@ -88,6 +91,7 @@ def test_valid_gate_matches_jax_fused_kernel(ess):
         ess_threshold=ess).numpy()
     np.testing.assert_array_equal(out[0], free[0])
     assert not np.array_equal(out[1], free[1])
+    assert not np.array_equal(out[2], free[2])
 
 
 def jax_draws(N, W, key):
