@@ -95,6 +95,24 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      and without the ESS gate; and with the valid gate on interior invalid
      runs (invalid from t=0, in the middle, at the end), also with the ESS
      gate and lambda = 0.95.
+ 19. the LGSSM's exact-message kinds and blocked Gibbs (plain PyTorch: no
+     kernel lies on this path, and it must launch none): the float64
+     windowed marginal gradient and FFBS on 8192 rows of buffered windows
+     (edge and interior), on the card and on the CPU with the same inputs
+     and draws (normwise relative difference at most 1e-9); the Fisher
+     identity on the card, the complete-data score's mean over 8192 FFBS
+     draws on an edge window (start 0, B > 0, where the pre-window
+     completion matters) within |z| < 5 of the marginal gradient;
+     ``LGSSMSampler.fit_scan`` with ``kind="marginal"`` and
+     ``kind="complete"`` at 8192 chains, S=40, B=10, T=1000, and
+     ``SeqLGSSMSampler`` with ``kind="marginal"`` on the Seq fits'
+     lengths (S=16, B=4, one sequence per gradient), 20 timed iterations
+     each, with 0 launches of K1 and of the resample-apply kernel;
+     recovery of A from 0.5 toward 0.9 by marginal-kind SGLD (256 chains,
+     200 iterations) and by 10 Gibbs sweeps of 1024 chains at T=1000,
+     with the time per sweep; and a systematic SVM fit at N=8192, beyond
+     K1's shared memory, which must take the unfused route (0 K1
+     launches) while N=4096 still launches K1.
 The last three lines are the kernel report (JSON), the card's
 ``nvidia-smi`` name and power limit, and the result (JSON).
 Exits non-zero without a result when no CUDA device is available.
@@ -243,6 +261,215 @@ def check_finite(what, *tensors):
     for t in tensors:
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"non-finite values in {what}")
+
+
+def exact_phase(dev, card):
+    """Phase 19 on ``dev`` (which may be the CPU for a rehearsal at sizes
+    set through the module's constants)."""
+    from sgmcmc_tpu_torch.inference import samplers
+    from sgmcmc_tpu_torch.models import lgssm, svm
+    from sgmcmc_tpu_torch.models.base import params_map
+    from sgmcmc_tpu_torch.ops import kalman
+    from sgmcmc_tpu_torch.ops.cuda import fused_pf, resample
+    from sgmcmc_tpu_torch.ops.subsequence import subsequence_weights
+    cuda = dev.type == "cuda"
+    f64 = torch.float64
+    C, T_len, iters, n_fisher = C_BENCH, T, ITERS, C_BENCH
+    rec = (C_CHECK, 200)                        # chains, iterations
+    gibbs = (1024, 10)                          # chains, timed sweeps
+    # (N, takes K1), chains, iterations: N=8192 is beyond every body's
+    # shared memory at W=60, N=4096 within it
+    route = (((8192, False), (4096, True)), C_CHECK, 2)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def launches():
+        return (fused_pf.fused_window.launches,
+                resample.resample_apply.launches)
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    truth = lgssm.from_scalars(0.9, 0.5, 1.0, device=dev)
+    start_p = lgssm.from_scalars(0.5, 1.0, 2.0, device=dev)
+    ys, _ = lgssm.generate_data(gen, truth, T_len)
+
+    # (a) the float64 oracle paths on the card against the CPU
+    R = C
+    u = torch.rand((R, 3), generator=gen, dtype=f64, device=dev)
+    rows = lgssm.LGSSMParams(
+        A=(0.5 + 0.45 * u[:, 0])[:, None, None],
+        C=torch.ones((R, 1, 1), dtype=f64, device=dev),
+        LQinv_vec=((0.3 + 1.2 * u[:, 1]) ** -0.5)[:, None],
+        LRinv_vec=((0.5 + 1.5 * u[:, 2]) ** -0.5)[:, None])
+    start = torch.randint(0, T_len - S + 1, (R,), generator=gen, device=dev)
+    start[:R // 8] = 0                              # edge windows
+    start[R // 8:R // 4] = T_len - S
+
+    def windows(start):
+        idx = start[:, None] - B + torch.arange(W, device=dev)
+        return (ys.double()[torch.clamp(idx, 0, T_len - 1)],
+                ((idx >= 0) & (idx < T_len)).to(f64),
+                subsequence_weights(start, S, T_len, dtype=f64))
+    win, valid, weights = windows(start)
+    z = torch.randn((R, W, 1), generator=gen, dtype=f64, device=dev)
+
+    def oracle(p, win, valid, weights, z):
+        g, ll = lgssm.windowed_marginal_gradient(p, win, valid, weights, B,
+                                                 S)
+        x = kalman.ffbs_sample(win, p.A, p.C, p.LQinv, p.LRinv,
+                               lgssm.default_forward_message(p), valid=valid,
+                               normals=z)
+        return [g.A, g.C, g.LQinv_vec, g.LRinv_vec, ll, x]
+
+    times = {}
+    for where, args in (("card", (rows, win, valid, weights, z)),
+                        ("cpu", (params_map(lambda x: x.cpu(), rows),
+                                 win.cpu(), valid.cpu(), weights.cpu(),
+                                 z.cpu()))):
+        sync()
+        t0 = time.perf_counter()
+        out = oracle(*args)
+        sync()
+        times[where] = (time.perf_counter() - t0, out)
+    rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
+              for a, b in zip(times["card"][1], times["cpu"][1]))
+    check_finite("the float64 oracle paths", *times["card"][1])
+    phase("19 exact card-cpu", f"float64 windowed_marginal_gradient + "
+          f"ffbs_sample on {R} rows (S={S} B={B}, 1/4 edge windows): max "
+          f"normwise relative |{dev.type} - CPU| = {rel:.3e} (bound 1e-9); "
+          f"{times['card'][0]:.3f} s on {dev.type}, {times['cpu'][0]:.3f} s "
+          f"on the CPU")
+    if not rel <= 1e-9:
+        raise AssertionError(f"the card and the CPU differ: {rel}")
+    del times, win, valid, weights, z, rows
+
+    # (b) the Fisher identity on an edge window, where the completion
+    # before the subsequence stands in for the missing buffer
+    p1 = params_map(lambda x: x.double(), truth)
+    w1, v1, wt1 = windows(torch.zeros((1,), dtype=torch.int64, device=dev))
+    gm, _ = lgssm.windowed_marginal_gradient(p1, w1, v1, wt1, B, S)
+    rows = params_map(lambda x: x.expand((n_fisher,) + x.shape[1:]), p1)
+    gc, llc = lgssm.windowed_complete_gradient(
+        rows, w1.expand(n_fisher, -1, -1), v1.expand(n_fisher, -1),
+        wt1.expand(n_fisher, -1), B, S, generator=gen)
+    f = torch.stack([gc.A[:, 0, 0], gc.C[:, 0, 0], gc.LQinv_vec[:, 0],
+                     gc.LRinv_vec[:, 0]], 1)
+    exact = torch.stack([gm.A[0, 0, 0], gm.C[0, 0, 0], gm.LQinv_vec[0, 0],
+                         gm.LRinv_vec[0, 0]])
+    check_finite("the complete-data scores", f, llc)
+    zval = (f.mean(0) - exact) / (f.std(0) / n_fisher ** 0.5)
+    phase("19 Fisher identity", f"windowed_complete_gradient over "
+          f"{n_fisher} FFBS draws at start 0 (B={B}, S={S}) against "
+          f"windowed_marginal_gradient: z [A, C, LQinv, LRinv] = "
+          f"{[round(float(v), 3) for v in zval]}; exact "
+          f"{[round(float(v), 4) for v in exact]}")
+    if not bool((zval.abs() < 5).all()):
+        raise AssertionError(f"the complete kind is off the marginal "
+                             f"gradient: z = {zval}")
+
+    # (c) the three fits at full width
+    seq_lengths = SEQ_LENGTHS
+    seqs = [lgssm.generate_data(gen, truth, T_i)[0] for T_i in seq_lengths]
+    ekw = dict(subsequence_length=S, buffer_length=B)
+    for label, make, fkw in (
+            (f"LGSSMSampler kind='marginal' S={S} B={B} T={T_len}",
+             lambda: samplers.LGSSMSampler(observations=ys, device=dev,
+                                           seed=7),
+             dict(ekw, kind="marginal")),
+            (f"LGSSMSampler kind='complete' S={S} B={B} T={T_len}",
+             lambda: samplers.LGSSMSampler(observations=ys, device=dev,
+                                           seed=7),
+             dict(ekw, kind="complete")),
+            (f"SeqLGSSMSampler kind='marginal' S=16 B=4 on "
+             f"{len(seq_lengths)} sequences of {min(seq_lengths)}-"
+             f"{max(seq_lengths)} steps",
+             lambda: samplers.SeqLGSSMSampler(seqs, num_sequences=1,
+                                              device=dev, seed=7),
+             dict(kind="marginal", subsequence_length=16, buffer_length=4))):
+        smp = make()
+        smp.parameters = start_p
+        for n_it in (2, iters):                     # warm-up, then timed
+            sync()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            fused_pf.fused_window.launches = 0
+            resample.resample_apply.launches = 0
+            t0 = time.perf_counter()
+            _, aux = smp.fit_scan("SGLD", num_iters=n_it, epsilon=0.1,
+                                  num_chains=C, record="none",
+                                  return_aux=True, **fkw)
+            float(aux[:, -1].sum())                 # synchronises
+            dt = time.perf_counter() - t0
+        p = smp.parameters
+        check_finite(label, aux, *[getattr(p, f) for f in
+                                   p.__dataclass_fields__])
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        phase("19 exact fit", f"{label}: fit_scan SGLD C={C}: "
+              f"{iters} iterations in {dt:.3f} s, "
+              f"{C * iters / dt:.1f} aggregate steps/s, (K1, "
+              f"resample-apply) launches {launches()}, peak "
+              f"{peak / 2 ** 30:.3f} GiB ({card})")
+        if launches() != (0, 0):
+            raise AssertionError(f"{label} launched a kernel: {launches()}")
+        del smp
+
+    # (d) recovery by the marginal kind and by Gibbs
+    smp = samplers.LGSSMSampler(observations=ys, device=dev, seed=8)
+    smp.parameters = start_p
+    trace = smp.fit_scan("SGLD", num_iters=rec[1], epsilon=0.05,
+                         num_chains=rec[0], record="all", kind="marginal",
+                         **ekw)
+    a_mean = float(trace.A[:, -50:].mean())
+    phase("19 exact recovery", f"kind='marginal', {rec[0]} chains: "
+          f"chain-mean A over the last 50 of {rec[1]} iterations "
+          f"{a_mean:.4f} (start 0.5, truth 0.9)")
+    if not abs(a_mean - 0.9) < abs(a_mean - 0.5):
+        raise AssertionError(f"A did not move toward 0.9: {a_mean}")
+    C_g, sweeps = gibbs
+    smp = samplers.LGSSMSampler(observations=ys, device=dev, seed=9)
+    smp.parameters = params_map(
+        lambda x: x.expand((C_g,) + x.shape[1:]).contiguous(), start_p)
+    smp.sample_gibbs()                              # warm-up
+    fused_pf.fused_window.launches = 0
+    resample.resample_apply.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(sweeps):
+        p = smp.sample_gibbs()
+    sync()
+    per_sweep = (time.perf_counter() - t0) / sweeps
+    check_finite("the Gibbs chains", p.A, p.LQinv_vec, p.LRinv_vec)
+    a_mean = float(p.A.mean())
+    phase("19 Gibbs", f"sample_gibbs on {C_g} chains, T={T_len}: "
+          f"{per_sweep:.4f} s per sweep ({C_g / per_sweep:.1f} chain-sweeps"
+          f"/s), (K1, resample-apply) launches {launches()}; chain-mean A "
+          f"after {sweeps + 1} sweeps {a_mean:.4f} (start 0.5, truth 0.9) "
+          f"({card})")
+    if not abs(a_mean - 0.9) < abs(a_mean - 0.5) or launches() != (0, 0):
+        raise AssertionError(f"Gibbs: A {a_mean}, launches {launches()}")
+    del smp, trace
+
+    # (e) a systematic fit beyond K1's shared memory takes the unfused
+    # route; one below it still takes K1
+    ys_s, _ = svm.generate_data(gen, svm.from_scalars(0.9, 0.5, 1.0,
+                                                      device=dev), T_len)
+    n_routes, C_r, it_r = route
+    for n, on_k1 in n_routes:
+        smp = samplers.SVMSampler(observations=ys_s, device=dev, seed=10)
+        fused_pf.fused_window.launches = 0
+        resample.resample_apply.launches = 0
+        _, aux = smp.fit_scan("SGLD", num_iters=it_r, num_chains=C_r,
+                              record="none", return_aux=True, N=n,
+                              resampler="systematic", **ekw)
+        check_finite(f"the systematic fit at N={n}", aux)
+        got = launches()
+        phase("19 route", f"SVMSampler.fit_scan systematic N={n}, {C_r} "
+              f"chains, {it_r} iterations: (K1, resample-apply) launches "
+              f"{got}")
+        want = ((it_r, 0) if on_k1 else (0, it_r * W)) if cuda else (0, 0)
+        if got != want:
+            raise AssertionError(f"N={n} took the wrong route: {got}")
 
 
 def main():
@@ -771,7 +998,7 @@ def main():
     for label, okw in (("rng='host'", {}), ("rng='kernel'", {"rng": "kernel"}),
                        ("ess_threshold=0.5", {"ess_threshold": 0.5})):
         cfg = sgmcmc.PFScoreConfig(n_particles=N, resampler="systematic",
-                                   **okw)
+                                   resample_mode="auto", **okw)
         score = sgmcmc.make_pf_score_fn(
             lgssm.OPTIMAL_KERNEL, lgssm.grad_statistic, 4, lgssm.unpack_grad,
             cfg, T_OR, prior_mean_var_fn=registry.LGSSM.prior_mean_var,
@@ -989,7 +1216,8 @@ def main():
         ys_x, _ = api.generate_data(gen, truth, T_X)
         rows = type(truth)(*[x.expand((C_X,) + x.shape[1:]).contiguous()
                              for x in vars(truth).values()])
-        cfg = sgmcmc.PFScoreConfig(n_particles=N, resampler="systematic")
+        cfg = sgmcmc.PFScoreConfig(n_particles=N, resampler="systematic",
+                                   resample_mode="auto")
         stats = []
         for fused_model, expect in ((api.get_fused(kern_name), (1, 0)),
                                     (None, (0, T_X))):
@@ -1154,7 +1382,7 @@ def main():
                                            rng="kernel"), 256),
                             ("unfused", dict(resampler="multinomial"), 32)):
         cfg = sgmcmc.PFScoreConfig(n_particles=N, subsequence_length=-1,
-                                   **okw)
+                                   resample_mode="auto", **okw)
         score = sgmcmc.make_seq_pf_score_fn(
             svm.KERNEL, svm.grad_statistic, 3, svm.unpack_grad, cfg,
             lengths_np, prior_mean_var_fn=registry.SVM.prior_mean_var,
@@ -1263,6 +1491,10 @@ def main():
         for seeded in (False, True):
             frame_err = max(frame_err, frame_check(what, n, seeded, **kw_c))
     k1_err = max(k1_err, frame_err)
+
+    # 19. the LGSSM's exact-message kinds, Gibbs and the route beyond K1's
+    # shared memory (no kernel of their own)
+    exact_phase(dev, card)
 
     main_shape = ra_times["K2b"]
     k1_tpu = "sgmcmc_tpu/ops/pallas/fused_pf.py:121"

@@ -5,6 +5,7 @@
         [--runs 7] [--resampler systematic|multinomial|stratified]
         [--particles 1024] [--rng host|kernel]
         [--model svm|lgssm|garch|svjm] [--kernel optimal|prior]
+        [--kind pf|marginal|complete] [--gibbs]
 
 Runs ``SVMSampler.fit_scan("SGLD", record="none")`` at the benchmark
 configuration (SVM, T=1000, N=1024, S=40, B=10, Poyiadjis O(N), systematic
@@ -16,7 +17,11 @@ runs ``LGSSMSampler`` on the scalar LGSSM (true A=0.9, C=1, Q=0.5, R=1;
 start A=0.5, Q=1, R=2), ``GARCHSampler`` (true alpha=0.1, beta=0.6,
 gamma=0.2, R=0.5; start 0.2, 0.3, 0.3, 1) or ``SVJMSampler`` (true A=0.9,
 Q=0.5, R=1, pJ=0.1, QJ=2; start 0.5, 1, 2, 0.05, 1) instead, ``--kernel``
-selects the particle kernel.  It prints:
+selects the particle kernel.  With ``--model lgssm``, ``--kind marginal``
+or ``complete`` runs the exact-message score kinds instead of the particle
+filter's, and ``--gibbs`` times ``--iters`` blocked-Gibbs sweeps
+(``LGSSMSampler.sample_gibbs`` on every chain) in place of a fit; a step
+is then one chain's sweep.  It prints:
   - the card's ``nvidia-smi`` name and power limit;
   - aggregate steps/s of ``--runs`` timed fits after one warm-up (each run,
     then the median and the lower and upper quartile);
@@ -92,6 +97,9 @@ def main():
     ap.add_argument("--model", default="svm",
                     choices=("svm", "lgssm", "garch", "svjm"))
     ap.add_argument("--kernel", default=None, choices=("optimal", "prior"))
+    ap.add_argument("--kind", default="pf",
+                    choices=("pf", "marginal", "complete"))
+    ap.add_argument("--gibbs", action="store_true")
     args = ap.parse_args()
     N = args.particles
     if not torch.cuda.is_available():
@@ -123,13 +131,30 @@ def main():
     sampler = cls(observations=ys, device="cuda", seed=2)
     sampler.parameters = start
     kw = dict(N=N, subsequence_length=S, buffer_length=B, pf="poyiadjis_N",
-              resampler=args.resampler, rng=args.rng, kernel=args.kernel)
+              resampler=args.resampler, rng=args.rng, kernel=args.kernel,
+              kind=args.kind)
     Z = sampler.model.get_kernel(args.kernel).noise_dim
-    print(f"config: {args.model} (kernel {args.kernel or 'default'}), "
-          f"{args.chains} chains, N={N}, S={S}, B={B}, T={T}, Poyiadjis "
-          f"O(N), {args.resampler} resampling, rng={args.rng}")
+    if args.gibbs:
+        print(f"config: {args.model} blocked Gibbs, {args.chains} chains, "
+              f"{args.iters} sweeps, T={T}")
+    elif args.kind != "pf":
+        print(f"config: {args.model} kind={args.kind}, {args.chains} chains, "
+              f"S={S}, B={B}, T={T}")
+    else:
+        print(f"config: {args.model} (kernel {args.kernel or 'default'}), "
+              f"{args.chains} chains, N={N}, S={S}, B={B}, T={T}, Poyiadjis "
+              f"O(N), {args.resampler} resampling, rng={args.rng}")
+
+    if args.gibbs:
+        from sgmcmc_tpu_torch.models.base import params_map
+        sampler.parameters = params_map(lambda x: x.expand(
+            (args.chains,) + x.shape[1:]).contiguous(), start)
 
     def fit():
+        if args.gibbs:
+            for _ in range(args.iters):
+                sampler.sample_gibbs()
+            return float(sampler.parameters.A.sum())    # synchronises
         _, aux = sampler.fit_scan("SGLD", num_iters=args.iters, epsilon=0.1,
                                   num_chains=args.chains, record="none",
                                   return_aux=True, **kw)
@@ -146,6 +171,9 @@ def main():
     print("steps/s runs:", " ".join(f"{r:.1f}" for r in rates))
     print(f"steps/s median {statistics.median(rates):.1f}, quartiles "
           f"{q[0]:.1f} / {q[2]:.1f} ({card})")
+    if args.gibbs:
+        print(f"seconds per sweep of {args.chains} chains: median "
+              f"{args.chains / statistics.median(rates):.4f} ({card})")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -1,10 +1,12 @@
 """User-facing sampler classes (counterpart of the SGLD ``fit_scan`` path
-of ``sgmcmc_tpu/inference/samplers.py``, with its multi-sequence samplers).
+of ``sgmcmc_tpu/inference/samplers.py``, with its multi-sequence samplers,
+the likelihood surface and the LGSSM's blocked Gibbs sampler).
 
 A :class:`Sampler` holds the model, the observations, the prior, the
 parameters, a seeded ``torch.Generator`` and its ``device``: the card
 unless the caller passes ``device="cpu"``.  Without a card the default
-raises; it never falls back to the CPU.
+raises; it never falls back to the CPU.  The likelihoods return a float
+when the sampler holds one chain and a ``[C]`` tensor for C chains.
 """
 from __future__ import annotations
 
@@ -61,6 +63,13 @@ class Sampler:
         return int(self.observations.shape[0])
 
     def _score_config(self, **kwargs) -> sgmcmc.PFScoreConfig:
+        if (kwargs.get("mesh") is not None
+                or kwargs.get("n_particle_devices") is not None
+                or kwargs.get("island_fused")):
+            raise NotImplementedError(
+                "mesh=, n_particle_devices= and island_fused= (the sharded "
+                "fits) are not ported yet (ROADMAP.md, Queue 1, slice 14: "
+                "parallel)")
         return sgmcmc.PFScoreConfig(
             n_particles=kwargs.get("N", kwargs.get("n_particles", 1000)),
             subsequence_length=kwargs.get("subsequence_length", -1),
@@ -76,25 +85,24 @@ class Sampler:
             rng=kwargs.get("rng", "host"),
         )
 
-    def _grad_fn(self, kind: str | None = None, **kwargs):
-        """The noisy-gradient function of the particle-filter score
-        (``kind=None`` or ``"pf"``).  The JAX package's exact message
-        passing kinds are not ported yet and raise."""
-        if kind in ("marginal", "complete"):
-            raise NotImplementedError(
-                f"kind={kind!r} (the exact message-passing score) is not "
-                "ported yet (ROADMAP.md, Queue 1 item 12); the port runs "
-                "kind='pf'")
-        if kind not in (None, "pf"):
-            raise ValueError(f"Unrecognized kind = '{kind}'")
+    def _grad_fn(self, is_scaled: bool = True, kind: str | None = None,
+                 **kwargs):
+        """The noisy-gradient function of the score ``kind``: the particle
+        filter's (``None`` or ``"pf"``) or, for models with exact message
+        passing, the buffered exact-message score (``"marginal"``) or the
+        FFBS complete-data score (``"complete"``, ``num_samples`` draws a
+        window).  ``is_scaled=False`` drops the 1/T of the gradient."""
         m = self.model
+        kind = "pf" if kind is None else kind
         cfg = self._score_config(**kwargs)
         kernel_name = kwargs.get("kernel")
-        key = ("grad", cfg, kernel_name, self.T, self._score_key(**kwargs))
+        key = ("grad", cfg, kind, kernel_name, is_scaled, self.T,
+               self._score_key(**kwargs), kwargs.get("num_samples", 1))
         if key not in self._cache:
-            score = self._make_score(cfg, kernel_name, **kwargs)
+            score = self._make_score(cfg, kernel_name, kind, **kwargs)
             self._cache[key] = sgmcmc.make_noisy_grad_fn(
-                score, lambda p: m.grad_logprior(self.prior, p), self.T)
+                score, lambda p: m.grad_logprior(self.prior, p), self.T,
+                is_scaled=is_scaled)
         return self._cache[key]
 
     def _score_key(self, **kwargs):
@@ -102,13 +110,90 @@ class Sampler:
         return None
 
     def _make_score(self, cfg: sgmcmc.PFScoreConfig, kernel_name,
-                    **kwargs) -> sgmcmc.PFScore:
+                    kind: str = "pf", **kwargs):
         m = self.model
+        if kind == "marginal":
+            if m.windowed_marginal_gradient is None:
+                raise NotImplementedError(
+                    f"{m.name} has no analytic message passing")
+            return sgmcmc.make_marginal_score_fn(
+                m.windowed_marginal_gradient, cfg, self.T)
+        if kind == "complete":
+            if m.windowed_complete_gradient is None:
+                raise NotImplementedError(
+                    f"{m.name} has no complete-data gradient path")
+            return sgmcmc.make_marginal_score_fn(
+                m.windowed_complete_gradient, cfg, self.T, pass_draws=True,
+                num_samples=kwargs.get("num_samples", 1))
+        if kind != "pf":
+            raise ValueError(f"Unrecognized kind = '{kind}'")
         return sgmcmc.make_pf_score_fn(
             m.get_kernel(kernel_name), m.grad_statistic,
             m.grad_statistic_dim, m.unpack_grad, cfg, self.T,
             prior_mean_var_fn=m.prior_mean_var,
             fused_model=m.get_fused(kernel_name) if m.get_fused else None)
+
+    def _loglik_fn(self, **kwargs) -> sgmcmc.PFScore:
+        """The particle filter's log-likelihood estimator: the PF score of
+        the model's sufficient statistic (on the unfused route)."""
+        m = self.model
+        cfg = self._score_config(**kwargs)
+        if m.suff_statistic is None:
+            raise NotImplementedError(
+                f"{m.name} has no sufficient statistic in the port yet "
+                "(ROADMAP.md, Queue 1, slice 8: the other steppers and the "
+                "sampler surface)")
+        kernel_name = kwargs.get("kernel")
+        key = ("loglik", cfg, kernel_name, self.T)
+        if key not in self._cache:
+            self._cache[key] = sgmcmc.make_pf_score_fn(
+                m.get_kernel(kernel_name), m.suff_statistic,
+                m.suff_statistic_dim, lambda s: s, cfg, self.T,
+                prior_mean_var_fn=m.prior_mean_var)
+        return self._cache[key]
+
+    # -- likelihoods -------------------------------------------------------
+    def _per_chain(self, values: torch.Tensor):
+        """A float for a one-chain sampler, else the ``[C]`` tensor; NaNs
+        raise."""
+        if bool(torch.isnan(values).any()):
+            raise ValueError("NaNs in loglikelihood")
+        return float(values[0]) if values.shape[0] == 1 else values
+
+    def noisy_loglikelihood(self, kind: str | None = None, **kwargs):
+        """A noisy log-likelihood per chain: the particle filter's
+        (``kind=None`` or ``"pf"``) or the exact-message score's buffered
+        one (``"marginal"``; the exact one for ``subsequence_length=-1``)
+        or the FFBS complete-data one (``"complete"``)."""
+        if kind in ("marginal", "complete"):
+            if kind == "marginal" and kwargs.get("subsequence_length",
+                                                 -1) == -1:
+                return self.exact_loglikelihood()
+            _, loglik = self._grad_fn(kind=kind, **kwargs)(
+                self.generator, self.parameters, self.observations)
+        elif kind in (None, "pf"):
+            _, loglik = self._loglik_fn(**kwargs)(
+                self.generator, self.parameters, self.observations)
+        else:
+            raise ValueError(f"Unrecognized kind = '{kind}'")
+        return self._per_chain(loglik)
+
+    def exact_loglikelihood(self):
+        """The exact marginal log-likelihood per chain (float64)."""
+        if self.model.marginal_loglikelihood is None:
+            raise NotImplementedError(
+                f"{self.model.name} has no exact marginal likelihood")
+        return self._per_chain(self.model.marginal_loglikelihood(
+            self.parameters, self.observations))
+
+    def exact_gradient(self):
+        """The exact gradient of the log-likelihood per chain, as float64
+        parameters."""
+        if self.model.marginal_loglikelihood is None:
+            raise NotImplementedError(
+                f"{self.model.name} has no exact marginal likelihood")
+        return self.model.gradient_marginal_loglikelihood(
+            self.parameters, self.observations)
 
     # -- multi-chain plumbing ----------------------------------------------
     def _chain_init_params(self, num_chains: int, chain_init):
@@ -215,15 +300,29 @@ class GARCHSampler(Sampler):
 
 class SVJMSampler(Sampler):
     """Stochastic-volatility jump model; its EP proposals are not ported
-    yet (ROADMAP.md, Queue 1 item 10)."""
+    yet (ROADMAP.md, Queue 1, slice 9: the other proposals)."""
     def __init__(self, observations=None, **kw):
         super().__init__("svjm", observations, **kw)
 
 
-class LGSSMSampler(Sampler):
-    """Scalar linear-Gaussian state-space model (n = m = 1).  The JAX
-    package's Gibbs mixin is not ported yet (ROADMAP.md, Queue 1 item
-    12)."""
+class GibbsSamplerMixin:
+    """Blocked Gibbs for conjugate models."""
+
+    def sample_gibbs(self):
+        """One Gibbs sweep (x | theta by FFBS, then the conjugate theta |
+        x) for every chain the sampler holds, then the projection."""
+        m = self.model
+        if m.gibbs_step is None:
+            raise NotImplementedError(
+                f"{m.name} has no conjugate Gibbs sampler")
+        self.parameters = m.project_parameters(m.gibbs_step(
+            self.generator, self.prior, self.parameters, self.observations))
+        return self.parameters
+
+
+class LGSSMSampler(GibbsSamplerMixin, Sampler):
+    """Scalar linear-Gaussian state-space model (n = m = 1), with the exact
+    likelihood surface and blocked Gibbs."""
     def __init__(self, observations=None, **kw):
         super().__init__("lgssm", observations, **kw)
 
@@ -245,9 +344,10 @@ def pack_sequences(sequences):
 class SeqSampler(Sampler):
     """Multi-sequence sampler: the observations are a list of sequences,
     and each gradient subsamples ``num_sequences`` of them (-1: all) and a
-    subsequence within each (:class:`~.sgmcmc.SeqPFScore`).  ``T`` is the
-    total length.  The predict surface and the exact log-likelihoods are
-    not ported yet (ROADMAP.md, Queue 1 item 12)."""
+    subsequence within each (:class:`~.sgmcmc.SeqPFScore`, or
+    :class:`~.sgmcmc.SeqMarginalScore` for ``kind="marginal"``).  ``T`` is
+    the total length.  The predict surface is not ported yet (ROADMAP.md,
+    Queue 1, slice 9)."""
 
     def __init__(self, model, observations: list, num_sequences: int = -1,
                  **kw):
@@ -265,14 +365,45 @@ class SeqSampler(Sampler):
         return kwargs.get("num_sequences", self.num_sequences)
 
     def _make_score(self, cfg: sgmcmc.PFScoreConfig, kernel_name,
-                    **kwargs) -> sgmcmc.SeqPFScore:
+                    kind: str = "pf", **kwargs):
         m = self.model
+        num_sequences = self._score_key(**kwargs)
+        if kind == "marginal":
+            if m.windowed_marginal_gradient is None:
+                raise NotImplementedError(
+                    f"{m.name} has no analytic message passing")
+            return sgmcmc.make_seq_marginal_score_fn(
+                m.windowed_marginal_gradient, cfg, self.lengths,
+                num_sequences)
+        if kind != "pf":
+            raise ValueError(f"Unrecognized kind = '{kind}' for SeqSampler")
         return sgmcmc.make_seq_pf_score_fn(
             m.get_kernel(kernel_name), m.grad_statistic,
             m.grad_statistic_dim, m.unpack_grad, cfg, self.lengths,
-            num_sequences=self._score_key(**kwargs),
-            prior_mean_var_fn=m.prior_mean_var,
+            num_sequences=num_sequences, prior_mean_var_fn=m.prior_mean_var,
             fused_model=m.get_fused(kernel_name) if m.get_fused else None)
+
+    def noisy_loglikelihood(self, **kwargs):
+        """The score's log-likelihood per chain (any ``kind``)."""
+        _, loglik = self._grad_fn(**kwargs)(self.generator, self.parameters,
+                                            self.observations)
+        return self._per_chain(loglik)
+
+    def exact_loglikelihood(self):
+        """Sum of the sequences' exact marginal log-likelihoods per chain
+        (float64), as one validity-masked message pass over the padded
+        sequences."""
+        m = self.model
+        if m.windowed_marginal_gradient is None:
+            raise NotImplementedError(
+                f"{m.name} has no exact marginal loglikelihood")
+        score = sgmcmc.make_seq_marginal_score_fn(
+            m.windowed_marginal_gradient,
+            sgmcmc.PFScoreConfig(n_particles=1, subsequence_length=-1),
+            self.lengths)
+        params = params_map(lambda x: x.double(), self.parameters)
+        return self._per_chain(score(None, params,
+                                     self.observations.double())[1])
 
 
 class SeqSVMSampler(SeqSampler):

@@ -1,15 +1,24 @@
-"""Buffered-PF score, noisy gradient, SGLD step and fit loop.
+"""Buffered-PF and exact-message scores, noisy gradient, SGLD step and fit
+loop.
 
 Counterpart of the SGLD part of ``sgmcmc_tpu/inference/sgmcmc.py``, with
-the multi-sequence score of ``make_seq_pf_score_fn``.  All functions act
-on C chains at once (parameters with a leading chain axis) and draw from
-an explicit ``torch.Generator``; the iteration loop is host Python.  For
-CUDA tensors the score runs the whole window in the fused CUDA kernel when
-the smoother is ``poyiadjis_N`` or ``nemeth`` with systematic resampling
-(with or without the ESS gate and the valid gate); every other
-configuration, and every configuration on the CPU, runs
-``run_buffered_pf``, whose window steps launch the resample-apply kernel
-for CUDA tensors.
+the multi-sequence scores (``make_seq_pf_score_fn``,
+``make_seq_marginal_score_fn``) and the exact-message score
+(``make_marginal_score_fn``).  All functions act on C chains at once
+(parameters with a leading chain axis) and draw from an explicit
+``torch.Generator``; the iteration loop is host Python.
+
+The route rule of the particle-filter score: for CUDA tensors it runs the
+whole window in the fused CUDA kernel when the smoother is
+``poyiadjis_N`` or ``nemeth`` with systematic resampling (with or without
+the ESS gate and the valid gate), the resample mode is one of
+``FUSED_RESAMPLE_MODES`` (the default ``"auto"`` is) and one block of the
+window fits the card's shared memory; every other configuration, and
+every configuration on the CPU, runs ``run_buffered_pf``, whose window
+steps launch the resample-apply kernel for CUDA tensors.  Unlike the JAX
+package's rule, any particle count takes the fused route (its
+``n_particles % 8 == 0`` is a TPU layout constraint); the two routes
+agree in law.
 """
 from __future__ import annotations
 
@@ -23,12 +32,17 @@ from torch import nn
 
 from ..models.base import ParticleKernel, StatisticFn, params_map
 from ..ops.buffered import run_buffered_pf, window_weights
+from ..ops.cuda import fused_pf
 from ..ops.cuda.fused_pf import fused_pf_score
 from ..ops.cuda.philox import STREAM_INIT, philox_normals
 from ..ops.subsequence import (buffered_window, sample_start,
-                               sequence_window, slice_window, window_length)
+                               sequence_window, slice_window,
+                               subsequence_weights, window_length)
 
 RNG_MODES = ("host", "kernel")
+# The JAX package's resample modes under which the fused kernel may run;
+# an explicit other mode ("gather", "xla", ...) takes the unfused route.
+FUSED_RESAMPLE_MODES = ("auto", "pallas", "pallas2", "fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +55,9 @@ class PFScoreConfig:
     # nemeth | poyiadjis_N | poyiadjis_N2 | filter
     smoother: str = "poyiadjis_N"
     resampler: str = "multinomial"      # multinomial|systematic|stratified
-    # the JAX package's mode names; all select identically (one kernel)
+    # the JAX package's mode names: all select identically (one kernel);
+    # those outside FUSED_RESAMPLE_MODES, the default among them, also keep
+    # the score off the fused kernel (the samplers pass "auto")
     resample_mode: str = "gather"
     lambduh: float = 0.95
     partition_style: str = "uniform"
@@ -67,10 +83,11 @@ class PFScoreConfig:
 def _fused_eligible(config: PFScoreConfig, fused_model) -> bool:
     """The fused window kernel handles the systematic-resampled Nemeth /
     Poyiadjis-O(N) smoothers (with or without the ESS gate) of models that
-    provide a FusedModel."""
+    provide a FusedModel, under the resample modes that allow it."""
     return (fused_model is not None
             and config.smoother in ("poyiadjis_N", "nemeth")
-            and config.resampler == "systematic")
+            and config.resampler == "systematic"
+            and config.resample_mode in FUSED_RESAMPLE_MODES)
 
 
 class WindowDraws(NamedTuple):
@@ -111,11 +128,17 @@ class PFScore(nn.Module):
                                                    T)
         self.fused_lambduh = (1.0 if config.smoother == "poyiadjis_N"
                               else config.lambduh)
+        self.valid_gate = False
 
     def uses_fused(self, device) -> bool:
-        """Whether the score runs the fused window kernel on ``device``."""
+        """Whether the score runs the fused window kernel on ``device``:
+        the route rule of the module docstring.  A particle count whose
+        block exceeds the card's shared memory takes the unfused route."""
         return (torch.device(device).type == "cuda"
-                and _fused_eligible(self.config, self.fused_model))
+                and _fused_eligible(self.config, self.fused_model)
+                and fused_pf.fits_shared_memory(
+                    self.fused_model.body, self.W, self.config.n_particles,
+                    self.valid_gate))
 
     @property
     def rows_per_chain(self) -> int:
@@ -252,11 +275,9 @@ class SeqPFScore(PFScore):
             if self.W > min_len:
                 raise ValueError(f"window {self.W} exceeds shortest "
                                  f"sequence {min_len}")
-        if num_sequences != -1 and not 1 <= num_sequences <= n_seq:
-            raise ValueError(f"num_sequences={num_sequences} must be -1 or "
-                             f"in [1, {n_seq}]")
+        self.valid_gate = self.full or B == -1
         self.num_sequences = num_sequences
-        self.k = n_seq if num_sequences == -1 else num_sequences
+        self.k = _chosen_count(num_sequences, n_seq)
 
     @property
     def rows_per_chain(self) -> int:
@@ -268,22 +289,10 @@ class SeqPFScore(PFScore):
         ``seq`` (chain-major; drawn without replacement per chain unless
         given), the starts ``floor(u * (T_i - S + 1))`` and the particle
         filter's draws."""
-        n_seq = len(self.lengths)
-        if seq is None:
-            if self.num_sequences == -1:
-                seq = torch.arange(n_seq, device=device).repeat(num_chains)
-            else:
-                seq = torch.rand((num_chains, n_seq), generator=generator,
-                                 device=device).argsort(1)[:, :self.k]
-        seq = seq.reshape(-1).to(device)
-        S = self.config.subsequence_length
-        if self.full:
-            start = torch.zeros_like(seq)
-        else:
-            n = self.lengths.to(device)[seq] - S + 1
-            u = torch.rand(seq.shape, generator=generator,
-                           dtype=torch.float64, device=device)
-            start = torch.minimum((u * n).long(), n - 1)
+        seq, start = _sequence_draw(generator, self.lengths, self.k,
+                                    self.num_sequences,
+                                    self.config.subsequence_length,
+                                    self.full, num_chains, device, seq)
         return self._noise(generator, device, start, seq)
 
     def _layout(self, draws: WindowDraws, observations: torch.Tensor):
@@ -297,18 +306,227 @@ class SeqPFScore(PFScore):
                               win.window_start[:, None] + t]
         step_w, in_win = window_weights(win.t1, win.tL, win.weights, W, dt)
         valid = None
-        if self.full or cfg.buffer_length == -1:    # whole padded sequences
+        if self.valid_gate:                         # whole padded sequences
             valid = (t < T_i[:, None]).to(dt)
         return window, step_w, in_win, valid
 
     def _combine(self, stat, loglik, draws: WindowDraws):
         """Sum over the chosen sequences, rescaled by
         ``T_total / sum(T_chosen)``."""
-        C, dt = stat.shape[0], stat.dtype
-        chosen = self.lengths.to(stat.device)[draws.seq].reshape(C, -1)
-        scale = torch.full((C,), float(self.T), dtype=dt,
-                           device=stat.device) / chosen.sum(1).to(dt)
+        scale = _sequence_scale(self.lengths, self.T, draws.seq,
+                                stat.shape[0], stat.dtype)
         return stat.sum(1) * scale[:, None], loglik.sum(1) * scale
+
+
+def _chosen_count(num_sequences: int, n_seq: int) -> int:
+    if num_sequences != -1 and not 1 <= num_sequences <= n_seq:
+        raise ValueError(f"num_sequences={num_sequences} must be -1 or "
+                         f"in [1, {n_seq}]")
+    return n_seq if num_sequences == -1 else num_sequences
+
+
+def _sequence_draw(generator, lengths, k: int, num_sequences: int, S: int,
+                   full: bool, num_chains: int, device, seq=None):
+    """(seq, start) of ``num_chains * k`` rows, chain-major: the sequences
+    (drawn without replacement per chain unless given; all of them in order
+    for ``num_sequences == -1``) and the starts ``floor(u * (T_i - S +
+    1))`` (0 for the full-sequence estimators)."""
+    n_seq = len(lengths)
+    if seq is None:
+        if num_sequences == -1:
+            seq = torch.arange(n_seq, device=device).repeat(num_chains)
+        else:
+            seq = torch.rand((num_chains, n_seq), generator=generator,
+                             device=device).argsort(1)[:, :k]
+    seq = seq.reshape(-1).to(device)
+    if full:
+        return seq, torch.zeros_like(seq)
+    n = lengths.to(device)[seq] - S + 1
+    u = torch.rand(seq.shape, generator=generator, dtype=torch.float64,
+                   device=device)
+    return seq, torch.minimum((u * n).long(), n - 1)
+
+
+def _sequence_scale(lengths, T_total: int, seq, C: int, dt):
+    """T_total / sum(T_chosen) per chain, [C]."""
+    chosen = lengths.to(seq.device)[seq].reshape(C, -1)
+    return torch.full((C,), float(T_total), dtype=dt,
+                      device=seq.device) / chosen.sum(1).to(dt)
+
+
+class ExactDraws(NamedTuple):
+    """Randomness of one exact-message score evaluation, R = chains x
+    rows per chain."""
+    start: torch.Tensor                   # [R] int64 subsequence starts
+    # kind='complete': [R, K, W, n] FFBS normals (row W-1 draws the last
+    # row, row t the step x_t | x_{t+1}) and [R, K, n] normals of the
+    # pre-window completion, K = num_samples
+    ffbs: torch.Tensor | None = None
+    completion: torch.Tensor | None = None
+    seq: torch.Tensor | None = None       # [R] sequences (Seq score)
+
+
+class MarginalScore(nn.Module):
+    """Buffered exact-message score estimator (kind='marginal', and
+    kind='complete' with ``pass_draws``).
+
+    ``windowed_fn(rows, window [R, W, m], valid [R, W], weights [R, S], B,
+    S)`` (the model's ``windowed_marginal_gradient``, or its
+    ``windowed_complete_gradient``, which also takes ``num_samples``,
+    ``normals`` and ``completion``) returns ``(gradient parameters,
+    loglik [R])``.  Each minibatch row's window is the JAX package's
+    rolled one: ``idx = start - B + arange(S + 2B)``, rows outside
+    ``[0, T)`` masked by ``valid`` and clipped, so the subsequence always
+    fills the central S rows (not the PF score's shifted window).
+    ``buffer_length=-1`` means B = T; ``subsequence_length=-1`` the whole
+    series with B = 0.  ``score(generator, params, observations,
+    draws=None)`` returns the minibatch means ``(gradient parameters,
+    loglik [C])``.
+    """
+
+    def __init__(self, windowed_fn, config: PFScoreConfig, T: int,
+                 pass_draws: bool = False, num_samples: int = 1):
+        super().__init__()
+        self.windowed_fn, self.config, self.T = windowed_fn, config, T
+        self.pass_draws, self.num_samples = pass_draws, num_samples
+        S = config.subsequence_length
+        self.full = (S == -1) or (S >= T)
+        self.B = 0 if self.full else (T if config.buffer_length == -1
+                                      else max(config.buffer_length, 0))
+        self.S = T if self.full else S
+        self.W = self.S + 2 * self.B
+
+    @property
+    def rows_per_chain(self) -> int:
+        return self.config.minibatch_size
+
+    def draw(self, generator: torch.Generator, num_chains: int,
+             device) -> ExactDraws:
+        cfg = self.config
+        R = num_chains * self.rows_per_chain
+        if self.full:
+            start = torch.zeros((R,), dtype=torch.int64, device=device)
+        else:
+            start = sample_start(generator, self.S, self.T, R,
+                                 cfg.partition_style, device)
+        return self._noise(generator, device, start)
+
+    def _noise(self, generator, device, start, seq=None) -> ExactDraws:
+        if not self.pass_draws:
+            return ExactDraws(start, seq=seq)
+        R, K = start.shape[0], self.num_samples
+        # one normal per latent row and draw: the ported LGSSM is scalar
+        ffbs = torch.randn((R, K, self.W, 1), generator=generator,
+                           device=device)
+        completion = torch.randn((R, K, 1), generator=generator,
+                                 device=device)
+        return ExactDraws(start, ffbs, completion, seq)
+
+    def _layout(self, draws: ExactDraws, observations: torch.Tensor):
+        """(windows [R, W, m], valid [R, W], weights [R, S])."""
+        R, dt, dev = draws.start.shape[0], observations.dtype, \
+            observations.device
+        if self.full:
+            ones = torch.ones((R, self.T), dtype=dt, device=dev)
+            return observations[None].expand(R, -1, -1), ones, ones
+        idx = draws.start[:, None] - self.B + torch.arange(self.W,
+                                                           device=dev)
+        valid = ((idx >= 0) & (idx < self.T)).to(dt)
+        weights = subsequence_weights(draws.start, self.S, self.T,
+                                      self.config.partition_style, dt)
+        return observations[torch.clamp(idx, 0, self.T - 1)], valid, weights
+
+    def _combine(self, grad, loglik, draws: ExactDraws, C: int):
+        """Per-chain score from the rows': the minibatch mean."""
+        return (params_map(lambda g: g.reshape((C, -1) + g.shape[1:]).mean(1),
+                           grad), loglik.reshape(C, -1).mean(1))
+
+    def forward(self, generator, params, observations: torch.Tensor,
+                draws: ExactDraws | None = None):
+        C, M = params.num_chains, self.rows_per_chain
+        if draws is None:
+            draws = self.draw(generator, C, observations.device)
+        rows = params if M == 1 else params_map(
+            lambda x: x.repeat_interleave(M, 0), params)
+        window, valid, weights = self._layout(draws, observations)
+        kw = {}
+        if self.pass_draws:
+            kw = dict(num_samples=self.num_samples,
+                      normals=draws.ffbs.to(observations.dtype),
+                      completion=draws.completion.to(observations.dtype))
+        grad, loglik = self.windowed_fn(rows, window, valid, weights, self.B,
+                                        self.S, **kw)
+        return self._combine(grad, loglik, draws, C)
+
+
+class SeqMarginalScore(MarginalScore):
+    """Multi-sequence buffered exact-message score (counterpart of
+    ``make_seq_marginal_score_fn``; kind='marginal' only).
+
+    The observations are packed ``[n_seq, T_max, m]`` with true
+    ``lengths``.  Each chain draws ``num_sequences`` sequences (as
+    :class:`SeqPFScore` does) and each chosen sequence gives one row: with
+    a finite subsequence length, a rolled ``[B | S | B]`` window clipped at
+    that sequence's own edges by the validity mask, with that sequence's
+    weights (B = T_max for ``buffer_length=-1``); with
+    ``subsequence_length=-1``, the whole padded sequence with its validity
+    mask as the weights too.  The rows are summed per chain and rescaled by
+    ``T_total / sum(T_chosen)``.
+    """
+
+    def __init__(self, windowed_fn, config: PFScoreConfig, lengths,
+                 num_sequences: int = -1):
+        lengths = torch.as_tensor(np.asarray(lengths), dtype=torch.int64)
+        super().__init__(windowed_fn, config, int(lengths.sum()))
+        self.lengths = lengths
+        n_seq, T_max = len(lengths), int(lengths.max())
+        S = config.subsequence_length
+        self.full = S == -1
+        if self.full:
+            self.B, self.S = 0, T_max
+        else:
+            if S > int(lengths.min()):
+                raise ValueError(f"subsequence {S} exceeds shortest sequence "
+                                 f"{int(lengths.min())}")
+            self.B = (T_max if config.buffer_length == -1
+                      else max(config.buffer_length, 0))
+            self.S = S
+        self.W = self.S + 2 * self.B
+        self.num_sequences = num_sequences
+        self.k = _chosen_count(num_sequences, n_seq)
+
+    @property
+    def rows_per_chain(self) -> int:
+        return self.k
+
+    def draw(self, generator: torch.Generator, num_chains: int, device,
+             seq: torch.Tensor | None = None) -> ExactDraws:
+        seq, start = _sequence_draw(generator, self.lengths, self.k,
+                                    self.num_sequences, self.S, self.full,
+                                    num_chains, device, seq)
+        return self._noise(generator, device, start, seq)
+
+    def _layout(self, draws: ExactDraws, observations: torch.Tensor):
+        dt, dev = observations.dtype, observations.device
+        T_max = observations.shape[1]
+        T_i = self.lengths.to(dev)[draws.seq][:, None]
+        if self.full:
+            vld = (torch.arange(T_max, device=dev) < T_i).to(dt)
+            return observations[draws.seq], vld, vld
+        weights = sequence_window(draws.start, T_i[:, 0], self.S, -1, T_max,
+                                  dt).weights
+        idx = draws.start[:, None] - self.B + torch.arange(self.W,
+                                                           device=dev)
+        valid = ((idx >= 0) & (idx < T_i)).to(dt)
+        return (observations[draws.seq[:, None],
+                             torch.clamp(idx, 0, T_max - 1)], valid, weights)
+
+    def _combine(self, grad, loglik, draws: ExactDraws, C: int):
+        scale = _sequence_scale(self.lengths, self.T, draws.seq, C,
+                                loglik.dtype)
+        return (params_map(lambda g: g.reshape((C, -1) + g.shape[1:]).sum(1)
+                           * scale.reshape((C,) + (1,) * (g.dim() - 1)),
+                           grad), loglik.reshape(C, -1).sum(1) * scale)
 
 
 def make_pf_score_fn(kernel: ParticleKernel, stat_fn: StatisticFn,
@@ -328,6 +546,22 @@ def make_seq_pf_score_fn(kernel: ParticleKernel, stat_fn: StatisticFn,
     """Build the multi-sequence score (see :class:`SeqPFScore`)."""
     return SeqPFScore(kernel, stat_fn, statistic_dim, unpack, config,
                       lengths, num_sequences, prior_mean_var_fn, fused_model)
+
+
+def make_marginal_score_fn(windowed_fn, config: PFScoreConfig, T: int,
+                           pass_draws: bool = False,
+                           num_samples: int = 1) -> MarginalScore:
+    """Build the buffered exact-message score (see :class:`MarginalScore`);
+    ``pass_draws`` gives the windowed function its random draws (the
+    complete kind's FFBS and completion normals)."""
+    return MarginalScore(windowed_fn, config, T, pass_draws, num_samples)
+
+
+def make_seq_marginal_score_fn(windowed_fn, config: PFScoreConfig, lengths,
+                               num_sequences: int = -1) -> SeqMarginalScore:
+    """Build the multi-sequence exact-message score (see
+    :class:`SeqMarginalScore`)."""
+    return SeqMarginalScore(windowed_fn, config, lengths, num_sequences)
 
 
 def make_noisy_grad_fn(score_fn, grad_logprior_fn, T: int,

@@ -3,20 +3,22 @@
 x_t = A x_{t-1} + N(0, Q),   y_t = C x_t + N(0, R),   n = m = 1.
 
 Counterpart of the parts of ``sgmcmc_tpu/models/lgssm.py`` that
-buffered-PF SGLD and its exact oracle run, for the scalar model (the
-configuration of every reference experiment): parameters in the same
-coordinates (A, C, packed Cholesky of the precisions LQinv_vec /
-LRinv_vec) with a leading chain axis, the prior and locally optimal
-particle kernels, the Fisher-identity statistic, the prior, its
-partial-prior gradient and the projection, the fused-window bodies (plain
-PyTorch here, CUDA in ``csrc/lgssm_body.cuh``), and the exact Kalman
-marginal log-likelihood and gradient through ``ops/kalman.py`` in
-float64.  The vector model, the Gibbs updates, the preconditioner and the
-predict surface are not ported yet.
+buffered-PF SGLD, the exact-message scores and blocked Gibbs run, for the
+scalar model (the configuration of every reference experiment):
+parameters in the same coordinates (A, C, packed Cholesky of the
+precisions LQinv_vec / LRinv_vec) with a leading chain axis, the prior
+and locally optimal particle kernels, the Fisher-identity and sufficient
+statistics, the prior, its partial-prior gradient and the projection, the
+fused-window bodies (plain PyTorch here, CUDA in
+``csrc/lgssm_body.cuh``), the exact Kalman oracle in float64 through
+``ops/kalman.py``, the windowed marginal and complete-data gradients, the
+latent draws and moments, and the conjugate Gibbs updates.  The vector
+model, the preconditioner and the predict surface are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,7 +27,8 @@ from ..ops import kalman
 from ..ops.cuda.fused_pf import FusedModel
 from ..utils.distributions import (matrix_normal_logpdf, sample_wishart,
                                    wishart_logpdf)
-from ..utils.linalg import (mat_to_tril_vector, spectral_norm_projection,
+from ..utils.linalg import (cholesky, inv, mat_to_tril_vector, solve,
+                            solve_upper, solve_vec, spectral_norm_projection,
                             tril_vector_to_mat)
 from .base import ParticleKernel, params_map
 
@@ -150,30 +153,229 @@ def generate_data(generator: torch.Generator, params: LGSSMParams, T: int):
 
 
 # --------------------------------------------------------------------------
-# Exact (Kalman) interface: the correctness oracle, in float64
+# Exact (Kalman) interface.  The oracle functions (marginal log-likelihood
+# and gradient) compute in float64; the window scores, the latent draws and
+# the moments in the parameters' dtype.  All of them act on every chain (or
+# window row) of ``params`` at once.
 # --------------------------------------------------------------------------
 
-def _kalman_args(params: LGSSMParams):
-    p = params_map(lambda x: x.double(), params)
-    return p.A, p.C, p.LQinv, p.LRinv
+def default_forward_message(params: LGSSMParams) -> kalman.GaussianMessage:
+    return kalman.init_forward_message(1, params.A.dtype, params.A.device)
 
 
-def _default_messages(params: LGSSMParams):
-    dev = params.A.device
-    return (kalman.init_forward_message(1, device=dev),
-            kalman.init_backward_message(1, device=dev))
+def default_backward_message(params: LGSSMParams) -> kalman.GaussianMessage:
+    return kalman.init_backward_message(1, params.A.dtype, params.A.device)
 
 
-def gradient_marginal_loglikelihood(params: LGSSMParams,
-                                    observations) -> LGSSMParams:
-    """Exact gradient of log p(y) per chain under the default diffuse prior
-    message, as float64 LGSSMParams."""
-    fwd, bwd = _default_messages(params)
-    g = kalman.gradient_marginal_loglikelihood(
-        observations.double(), *_kalman_args(params), fwd, bwd)
+def _mats(params: LGSSMParams):
+    return params.A, params.C, params.LQinv, params.LRinv
+
+
+def _f64(params: LGSSMParams, observations, *msgs):
+    """The oracle's float64 copies of its inputs."""
+    def msg64(msg):
+        return None if msg is None else kalman.GaussianMessage(
+            *[x.double() for x in msg])
+    return (params_map(lambda x: x.double(), params), observations.double(),
+            *[msg64(m) for m in msgs])
+
+
+def _as_params(g: dict) -> LGSSMParams:
     return LGSSMParams(A=g["A"], C=g["C"],
                        LQinv_vec=mat_to_tril_vector(g["LQinv"]),
                        LRinv_vec=mat_to_tril_vector(g["LRinv"]))
+
+
+def marginal_loglikelihood(params: LGSSMParams, observations,
+                           forward_msg=None, backward_msg=None, weights=None,
+                           valid=None) -> torch.Tensor:
+    """Exact log p(y) per chain in float64, under the default diffuse
+    prior message unless ``forward_msg`` is given."""
+    params, observations, forward_msg, backward_msg = _f64(
+        params, observations, forward_msg, backward_msg)
+    return kalman.marginal_loglikelihood(
+        observations, *_mats(params),
+        forward_msg or default_forward_message(params),
+        backward_msg or default_backward_message(params),
+        None if weights is None else weights.double(),
+        None if valid is None else valid.double())
+
+
+def gradient_marginal_loglikelihood(params: LGSSMParams, observations,
+                                    forward_msg=None, backward_msg=None,
+                                    weights=None, include_init: bool = True,
+                                    valid=None) -> LGSSMParams:
+    """Exact gradient of log p(y) per chain, as float64 LGSSMParams."""
+    params, observations, forward_msg, backward_msg = _f64(
+        params, observations, forward_msg, backward_msg)
+    return _as_params(kalman.gradient_marginal_loglikelihood(
+        observations, *_mats(params),
+        forward_msg or default_forward_message(params),
+        backward_msg or default_backward_message(params),
+        None if weights is None else weights.double(), include_init,
+        None if valid is None else valid.double()))
+
+
+def predictive_loglikelihood(params: LGSSMParams, observations, lag: int = 1,
+                             forward_msg=None) -> torch.Tensor:
+    """Sum_t log p(y_t | y_{<= t-lag}) per chain."""
+    return kalman.predictive_loglikelihood(
+        observations, *_mats(params),
+        forward_msg or default_forward_message(params), lag)
+
+
+def latent_var_distr(params: LGSSMParams, observations, lag=None,
+                     forward_msg=None, backward_msg=None):
+    """Marginals p(x_t | y_{<= t+lag}), smoothed for ``lag=None``:
+    (mean [C, T, 1], cov [C, T, 1, 1])."""
+    fwd = forward_msg or default_forward_message(params)
+    bwd = backward_msg or default_backward_message(params)
+    if lag is None:
+        return kalman.pairwise_smoothed_moments(observations, *_mats(params),
+                                                fwd, bwd)
+    return kalman.lagged_moments(observations, *_mats(params), fwd, bwd,
+                                 int(lag))
+
+
+def latent_var_sample(params: LGSSMParams, generator, observations,
+                      forward_msg=None, num_samples: int = 1,
+                      distr: str = "joint", lag=None, backward_msg=None,
+                      valid=None, normals=None) -> torch.Tensor:
+    """Posterior latent draws per chain: ``distr='joint'`` FFBS paths
+    (``[C, T, 1]``, or ``[C, num_samples, T, 1]``); ``distr='marginal'``
+    independent per-t draws from the (optionally lagged) marginals.
+    ``normals`` shaped like the output replace the generator's."""
+    if distr == "joint":
+        if lag is not None:
+            raise ValueError("Must set distr to 'marginal' for lag != None")
+        return kalman.ffbs_sample(
+            observations, *_mats(params),
+            forward_msg or default_forward_message(params), num_samples,
+            valid=valid, normals=normals, generator=generator)
+    if valid is not None:
+        raise ValueError("valid masking is only supported for distr='joint'")
+    if distr != "marginal":
+        raise ValueError(f"Unrecognized distr '{distr}'")
+    mean, cov = latent_var_distr(params, observations, lag, forward_msg,
+                                 backward_msg)
+    if normals is None:
+        normals = torch.randn(mean.shape[:-2] + (num_samples,)
+                              + mean.shape[-2:], generator=generator,
+                              dtype=mean.dtype, device=mean.device)
+    elif num_samples == 1:
+        normals = normals[..., None, :, :]
+    x = mean[..., None, :, :] + torch.einsum("...tij,...stj->...sti",
+                                             cholesky(cov), normals)
+    return x[..., 0, :, :] if num_samples == 1 else x
+
+
+def windowed_marginal_gradient(params: LGSSMParams, window, valid, weights,
+                               B: int, S: int):
+    """The buffered exact-gradient estimator over fixed-shape windows
+    ``[R, B + S + B, 1]`` of R rows (``params`` with R chains): boundary
+    messages over the buffers (rows masked by ``valid [R, W]`` pass
+    through) from the default messages, then the weighted gradient and
+    marginal log-likelihood over the central S steps (weights
+    ``[R, S]``).  Returns (gradient LGSSMParams, loglik [R])."""
+    mats = _mats(params)
+    fwd0 = default_forward_message(params)
+    bwd0 = default_backward_message(params)
+    fwd = kalman.forward_message(window[..., :B, :], *mats, fwd0,
+                                 valid=valid[..., :B]) if B else fwd0
+    bwd = kalman.backward_message(window[..., B + S:, :], *mats, bwd0,
+                                  valid=valid[..., B + S:]) if B else bwd0
+    loglik, g = kalman.marginal_loglikelihood_and_gradient(
+        window[..., B:B + S, :], *mats, fwd, bwd, weights,
+        valid[..., B:B + S])
+    return _as_params(g), loglik
+
+
+def _upper_draw(J, z):
+    """chol(J)^-T z: a N(0, J^-1) draw from standard normals z."""
+    return solve_upper(cholesky(J).mT, z[..., None])[..., 0]
+
+
+def windowed_complete_gradient(params: LGSSMParams, window, valid, weights,
+                               B: int, S: int, generator=None,
+                               num_samples: int = 1, normals=None,
+                               completion=None):
+    """kind='complete' buffered estimator over the windows of
+    :func:`windowed_marginal_gradient`: FFBS latent draws over each window,
+    then the weighted complete-data score over the subsequence, by autograd
+    of :func:`complete_data_loglikelihood` per row (the draws held fixed),
+    averaged over ``num_samples`` draws.
+
+    The latent before the subsequence is the sampled buffer row when that
+    row is a real observation, else its exact completion given the first
+    subsequence draw, x_prev | x_B ~ N(J_c^-1 h_c, J_c^-1) with J_c = J_0 +
+    A'Q^-1 A and h_c = h_0 + A'Q^-1 x_B (y never touches it), so that the
+    Fisher identity E[grad complete] = grad marginal holds exactly.
+
+    Draws: ``normals [R, K, W, 1]`` (the FFBS normals of
+    :func:`~..ops.kalman.ffbs_sample`) and ``completion [R, K, 1]``, K =
+    ``num_samples``; without them they come from ``generator``."""
+    batch, W, dt, dev = window.shape[:-2], window.shape[-2], window.dtype, \
+        window.device
+    K, n = num_samples, 1
+    if normals is None:
+        normals = torch.randn(batch + (K, W, n), generator=generator,
+                              dtype=dt, device=dev)
+    if completion is None:
+        completion = torch.randn(batch + (K, n), generator=generator,
+                                 dtype=dt, device=dev)
+    fmsg0 = default_forward_message(params)
+    with torch.no_grad():
+        z = normals if K > 1 else normals[..., 0, :, :]
+        x = kalman.ffbs_sample(window, *_mats(params), fmsg0, K, valid=valid,
+                               normals=z).reshape(batch + (K, W, n))
+        Qinv = params.LQinv @ params.LQinv.mT
+        AtQinv = (params.A.mT @ Qinv)[..., None, :, :]
+        Jc = fmsg0.precision + AtQinv @ params.A[..., None, :, :]
+        hc = fmsg0.mean_precision + (AtQinv @ x[..., B, :, None])[..., 0]
+        x_init = solve_vec(Jc, hc) + _upper_draw(Jc, completion)
+        x_prev = x_init if B == 0 else torch.where(
+            valid[..., B - 1, None, None] > 0, x[..., B - 1, :], x_init)
+    leaves = [v.detach().requires_grad_() for v in
+              (params.A, params.C, params.LQinv_vec, params.LRinv_vec)]
+    with torch.enable_grad():
+        p = LGSSMParams(*[leaf[:, None] for leaf in leaves])   # sample axis
+        ll = complete_data_loglikelihood(
+            p, window[..., None, B:B + S, :], x[..., B:B + S, :], x_prev,
+            weights[..., None, :]).mean(-1)                       # [R]
+        grads = torch.autograd.grad(ll.sum(), leaves)
+    return LGSSMParams(*grads), ll.detach()
+
+
+def complete_data_loglikelihood(params: LGSSMParams, observations,
+                                latent_vars, x_prev=None, weights=None):
+    """log p(y, x | theta) [...] for observations ``[..., T, 1]`` and
+    latents ``[..., T, 1]``, each step weighted by ``weights [..., T]``;
+    ``x_prev [..., 1]`` (the latent before the first step) adds the first
+    transition."""
+    A, C, LQinv, LRinv = _mats(params)
+    n = m = 1
+    x = latent_vars
+    T = x.shape[-2]
+    if weights is None:
+        weights = torch.ones((T,), dtype=x.dtype, device=x.device)
+    half_logdet_R = torch.log(torch.abs(torch.diagonal(
+        LRinv, dim1=-2, dim2=-1))).sum(-1)
+    half_logdet_Q = torch.log(torch.abs(torch.diagonal(
+        LQinv, dim1=-2, dim2=-1))).sum(-1)
+    z = (observations - x @ C.mT) @ LRinv
+    log_emit = (-0.5 * m * _LOG_2PI + half_logdet_R[..., None]
+                - 0.5 * (z * z).sum(-1))
+    total = (weights * log_emit).sum(-1)
+    zx = (x[..., 1:, :] - x[..., :-1, :] @ A.mT) @ LQinv
+    log_trans = (-0.5 * n * _LOG_2PI + half_logdet_Q[..., None]
+                 - 0.5 * (zx * zx).sum(-1))
+    total = total + (weights[..., 1:] * log_trans).sum(-1)
+    if x_prev is not None:
+        d0 = ((x[..., 0, :] - (A @ x_prev[..., None])[..., 0])[..., None, :]
+              @ LQinv)[..., 0, :]
+        total = total + weights[..., 0] * (
+            -0.5 * n * _LOG_2PI + half_logdet_Q - 0.5 * (d0 * d0).sum(-1))
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -270,6 +472,15 @@ def grad_statistic(params: LGSSMParams, x_t, x_next, y_next, t):
     grad_C = params.rinv[:, None] * diff_y * x1
     grad_LRinv = 1.0 / lrinv - diff_y * diff_y * lrinv
     return torch.stack([grad_LRinv, grad_LQinv, grad_C, grad_A], -1)
+
+
+SUFF_STATISTIC_DIM = 3  # [x', x'^2, x x']
+
+
+def suff_statistic(params: LGSSMParams, x_t, x_next, y_next, t):
+    """Gaussian sufficient statistics per particle, [C, N, 3]."""
+    x0, x1 = x_t[..., 0], x_next[..., 0]
+    return torch.stack([x1, x1 * x1, x0 * x1], -1)
 
 
 def unpack_grad(stat: torch.Tensor) -> LGSSMParams:
@@ -437,3 +648,105 @@ def project_parameters(params: LGSSMParams, a_threshold: float = 0.9999,
     return LGSSMParams(A=spectral_norm_projection(params.A, a_threshold),
                        C=C, LQinv_vec=torch.abs(params.LQinv_vec),
                        LRinv_vec=torch.abs(params.LRinv_vec))
+
+
+# --------------------------------------------------------------------------
+# Blocked Gibbs: x | theta by FFBS, then the conjugate theta | x, per chain
+# --------------------------------------------------------------------------
+
+class GibbsDraws(NamedTuple):
+    """The random draws of one Gibbs sweep over C chains (n = m = 1):
+    the FFBS normals, then the Wishart draws of Q^-1 and R^-1 (chi-square
+    diagonals and off-diagonal normals, see
+    :func:`~..utils.distributions.sample_wishart`) and the matrix-normal
+    normals of A (and of C when it is not fixed)."""
+    ffbs: torch.Tensor                      # [C, T, n]
+    q_chi2: torch.Tensor                    # [C, n]
+    q_off: torch.Tensor                     # [C, n(n-1)/2]
+    a_normals: torch.Tensor                 # [C, n, n]
+    r_chi2: torch.Tensor                    # [C, m]
+    r_off: torch.Tensor                     # [C, m(m-1)/2]
+    c_normals: torch.Tensor | None = None   # [C, m, n] (fix_C_eye=False)
+
+
+def gibbs_sufficient_statistics(observations, latent_vars) -> dict:
+    """Fox-thesis sufficient statistics of latents ``[..., T, n]`` and
+    observations ``[..., T, m]`` (scatter matrices with the batch axes)."""
+    x, y = latent_vars, observations
+    return dict(
+        Sx_prevprev=x[..., :-1, :].mT @ x[..., :-1, :],
+        Sx_curprev=x[..., 1:, :].mT @ x[..., :-1, :],
+        Sx_curcur=x[..., 1:, :].mT @ x[..., 1:, :],
+        x_count=x.shape[-2] - 1,
+        Sy_prevprev=x.mT @ x,
+        Sy_curprev=y.mT @ x,
+        Sy_curcur=y.mT @ y,
+        y_count=y.shape[-2],
+    )
+
+
+def _conjugate_mniw_sample(generator, S_prevprev, S_curprev, S_curcur, count,
+                           mean_M, var_col, scale_Vinv, df_Vinv, chi2=None,
+                           off=None, normals=None):
+    """(Vinv, M) per chain from the matrix-normal-Wishart posterior of the
+    scatter matrices ``[C, ...]``; the draws (Wishart ``chi2``, ``off``;
+    matrix-normal ``normals`` shaped like ``[C] + mean_M``) replace the
+    generator's."""
+    Spp = torch.diag(1.0 / var_col) + S_prevprev
+    Scp = mean_M / var_col[None, :] + S_curprev
+    Scc = (mean_M / var_col[None, :]) @ mean_M.mT + S_curcur
+    M_mean = solve(Spp, Scp.mT).mT
+    S_schur = Scc - Scp @ M_mean.mT
+    scale_post = inv(inv(scale_Vinv) + S_schur)
+    Vinv = sample_wishart(generator, df_Vinv + count, scale_post,
+                          chi2=chi2, off=off)
+    L_col = cholesky(inv(Spp))
+    if normals is None:
+        normals = torch.randn(M_mean.shape, generator=generator,
+                              dtype=M_mean.dtype, device=M_mean.device)
+    M = M_mean + solve_upper(cholesky(Vinv).mT, normals) @ L_col.mT
+    return Vinv, M
+
+
+def gibbs_parameters_sample(generator, prior: LGSSMPrior, observations,
+                            latent_vars, fix_C_eye: bool = True,
+                            draws: GibbsDraws | None = None) -> LGSSMParams:
+    """theta | x, y per chain for latents ``[C, T, 1]``: conjugate block
+    updates for (Q, A) and (R, C).  With ``fix_C_eye`` (the default
+    identifiability constraint) R^-1 is drawn given C = I, a Wishart with
+    the residual scatter of y - x, so the chain targets the fixed-C
+    posterior; ``fix_C_eye=False`` draws the free (R, C) block."""
+    ss = gibbs_sufficient_statistics(observations, latent_vars)
+    d = draws or GibbsDraws(*[None] * 6)
+    Qinv, A = _conjugate_mniw_sample(
+        generator, ss["Sx_prevprev"], ss["Sx_curprev"], ss["Sx_curcur"],
+        ss["x_count"], prior.mean_A, prior.var_col_A, prior.scale_Qinv,
+        prior.df_Qinv, d.q_chi2, d.q_off, d.a_normals)
+    if fix_C_eye:
+        Cm = torch.eye(observations.shape[-1], latent_vars.shape[-1],
+                       dtype=A.dtype, device=A.device).expand(
+                           A.shape[:-2] + (observations.shape[-1],
+                                           latent_vars.shape[-1]))
+        S_emit = (ss["Sy_curcur"] - Cm @ ss["Sy_curprev"].mT
+                  - ss["Sy_curprev"] @ Cm.mT + Cm @ ss["Sy_prevprev"] @ Cm.mT)
+        scale_post = inv(inv(prior.scale_Rinv) + S_emit)
+        Rinv = sample_wishart(generator, prior.df_Rinv + ss["y_count"],
+                              scale_post, chi2=d.r_chi2, off=d.r_off)
+    else:
+        Rinv, Cm = _conjugate_mniw_sample(
+            generator, ss["Sy_prevprev"], ss["Sy_curprev"], ss["Sy_curcur"],
+            ss["y_count"], prior.mean_C, prior.var_col_C, prior.scale_Rinv,
+            prior.df_Rinv, d.r_chi2, d.r_off, d.c_normals)
+    return LGSSMParams(A=A, C=Cm, LQinv_vec=mat_to_tril_vector(cholesky(Qinv)),
+                       LRinv_vec=mat_to_tril_vector(cholesky(Rinv)))
+
+
+def gibbs_step(generator, prior: LGSSMPrior, params: LGSSMParams,
+               observations, forward_msg=None,
+               draws: GibbsDraws | None = None) -> LGSSMParams:
+    """One blocked-Gibbs sweep for every chain of ``params``: x | theta by
+    FFBS over the observations ``[T, 1]``, then theta | x."""
+    x = latent_var_sample(params, generator, observations, forward_msg,
+                          normals=None if draws is None else draws.ffbs)
+    return gibbs_parameters_sample(generator, prior, observations, x,
+                                   draws=draws)

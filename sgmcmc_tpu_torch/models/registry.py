@@ -1,6 +1,6 @@
 """Uniform model adapter (counterpart of ``sgmcmc_tpu/models/registry.py``,
-with the fields buffered-PF SGLD reads and the SVM, scalar LGSSM, GARCH
-and SVJM entries)."""
+with the fields buffered-PF SGLD, the exact-message scores and Gibbs read,
+and the SVM, scalar LGSSM, GARCH and SVJM entries)."""
 from __future__ import annotations
 
 import dataclasses
@@ -29,9 +29,18 @@ class ModelAPI:
     generate_data: Callable      # (generator, params, T) -> (ys, xs)
     prior_mean_var: Callable     # params -> (prior_mean [C], prior_var [C])
     get_fused: Callable | None = None   # kernel_name -> FusedModel | None
+    # the particle filter's log-likelihood statistic (None: not ported)
+    suff_statistic: Callable | None = None
+    suff_statistic_dim: int = 0
+    # the exact-message oracle and scores and Gibbs (LGSSM)
+    marginal_loglikelihood: Callable | None = None
+    gradient_marginal_loglikelihood: Callable | None = None
+    windowed_marginal_gradient: Callable | None = None
+    windowed_complete_gradient: Callable | None = None
+    gibbs_step: Callable | None = None
 
 
-def _api(name: str, mod, prior_mean_var) -> ModelAPI:
+def _api(name: str, mod, prior_mean_var, **extra) -> ModelAPI:
     return ModelAPI(
         name=name, get_kernel=mod.get_kernel,
         grad_statistic=mod.grad_statistic,
@@ -40,7 +49,7 @@ def _api(name: str, mod, prior_mean_var) -> ModelAPI:
         grad_logprior=mod.grad_logprior, sample_prior=mod.sample_prior,
         project_parameters=mod.project_parameters,
         generate_data=mod.generate_data, prior_mean_var=prior_mean_var,
-        get_fused=mod.get_fused)
+        get_fused=mod.get_fused, **extra)
 
 
 def _stationary_prior(mod):
@@ -54,7 +63,15 @@ def _stationary_prior(mod):
 SVM = _api("svm", svm_mod, _stationary_prior(svm_mod))
 # the JAX package's (0, 10 I) initial-state prior, per chain
 LGSSM = _api("lgssm_1_1", lgssm_mod,
-             lambda p: (torch.zeros_like(p.a), torch.full_like(p.a, 10.0)))
+             lambda p: (torch.zeros_like(p.a), torch.full_like(p.a, 10.0)),
+             suff_statistic=lgssm_mod.suff_statistic,
+             suff_statistic_dim=lgssm_mod.SUFF_STATISTIC_DIM,
+             marginal_loglikelihood=lgssm_mod.marginal_loglikelihood,
+             gradient_marginal_loglikelihood=(
+                 lgssm_mod.gradient_marginal_loglikelihood),
+             windowed_marginal_gradient=lgssm_mod.windowed_marginal_gradient,
+             windowed_complete_gradient=lgssm_mod.windowed_complete_gradient,
+             gibbs_step=lgssm_mod.gibbs_step)
 GARCH = _api("garch", garch_mod, _stationary_prior(garch_mod))
 SVJM = _api("svjm", svjm_mod, _stationary_prior(svjm_mod))
 _MODELS = {"svm": SVM, "garch": GARCH, "svjm": SVJM}

@@ -204,8 +204,8 @@ def get_kernel(name: str | None = None) -> ParticleKernel:
     if name in ("ep", "ep_avg"):
         raise NotImplementedError(
             f"SVJM kernel '{name}' (the Gauss-Hermite EP proposal) is not "
-            "ported yet (ROADMAP.md, Queue 1 item 10); the port runs the "
-            "bootstrap kernel 'prior'")
+            "ported yet (ROADMAP.md, Queue 1, slice 9: the other "
+            "proposals); the port runs the bootstrap kernel 'prior'")
     raise ValueError(f"Unrecognized SVJM kernel '{name}'")
 
 

@@ -121,6 +121,21 @@ def _check_inputs(model, pvec, x0, normals, seeds, ys, weights, xi, vs):
                          "steps")
 
 
+def _smem_bytes(body: str, W: int, N: int, valid_gate: bool) -> int:
+    """Shared memory of one block of the fused window, as the library
+    launches it."""
+    return getattr(_library(), f"sgmcmc_fused_window_{body}_smem")(
+        W, N, int(valid_gate))
+
+
+def fits_shared_memory(body: str, W: int, N: int,
+                       valid_gate: bool = False) -> bool:
+    """Whether the fused window on ``body`` at W steps and N particles fits
+    the card's shared memory, the limit above which :func:`fused_window`
+    raises.  Loads (and at first use builds) the kernel library."""
+    return _smem_bytes(body, W, N, valid_gate) <= SMEM_LIMIT
+
+
 def fused_window(model: FusedModel, pvec: torch.Tensor, x0: torch.Tensor,
                  normals: torch.Tensor | None, ys: torch.Tensor,
                  weights: torch.Tensor, xi: torch.Tensor,
@@ -152,14 +167,12 @@ def fused_window(model: FusedModel, pvec: torch.Tensor, x0: torch.Tensor,
         raise ValueError(f"no fused window for device {x0.device}")
     C, W = ys.shape
     N = x0.shape[-1]
-    lib = _library()
-    smem = getattr(lib, f"sgmcmc_fused_window_{model.body}_smem")(
-        W, N, int(vs is not None))
+    smem = _smem_bytes(model.body, W, N, vs is not None)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"N={N}, W={W} needs {smem} bytes of shared memory per block; "
             f"the card gives at most {SMEM_LIMIT}")
-    entry = getattr(lib, f"sgmcmc_fused_window_{model.body}")
+    entry = getattr(_library(), f"sgmcmc_fused_window_{model.body}")
     out = torch.empty((C, model.n_stat + 1), dtype=torch.float32,
                       device=x0.device)
     thr = -1.0 if ess_threshold is None else float(ess_threshold)

@@ -8,7 +8,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+from .linalg import cholesky
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -32,20 +35,32 @@ def matrix_normal_logpdf(X: torch.Tensor, mean: torch.Tensor,
 
 
 def sample_wishart(generator: torch.Generator, df, scale: torch.Tensor,
-                   batch_shape: tuple = ()) -> torch.Tensor:
-    """Wishart(df, scale) samples [*batch_shape, n, n] via the Bartlett
-    decomposition W = L A A^T L^T, L = chol(scale), A lower-triangular with
-    diag(A)_i^2 ~ chi2(df - i) and N(0, 1) below the diagonal."""
+                   batch_shape: tuple = (), chi2: torch.Tensor | None = None,
+                   off: torch.Tensor | None = None) -> torch.Tensor:
+    """Wishart(df, scale) samples [*batch, n, n], the batch being
+    ``batch_shape`` broadcast with the leading axes of ``scale``, via the
+    Bartlett decomposition W = L A A^T L^T, L = chol(scale), A
+    lower-triangular with diag(A)_i^2 ~ chi2(df - i) and N(0, 1) below the
+    diagonal.  ``chi2 [*batch, n]`` (the squared diagonal) and ``off
+    [*batch, n(n-1)/2]`` (the normals below it, in ``np.tril_indices(n,
+    -1)`` order) replace the generator's draws."""
     n = scale.shape[-1]
     dt, dev = scale.dtype, scale.device
-    i = torch.arange(n, dtype=dt, device=dev)
-    alpha = ((torch.as_tensor(df, dtype=dt, device=dev) - i) / 2.0).expand(
-        tuple(batch_shape) + (n,)).contiguous()
-    chi2 = 2.0 * torch._standard_gamma(alpha, generator=generator)
-    A = torch.randn(tuple(batch_shape) + (n, n), generator=generator,
-                    dtype=dt, device=dev).tril(-1)
-    A = A + torch.diag_embed(torch.sqrt(chi2))
-    LA = torch.linalg.cholesky(scale) @ A
+    batch = torch.broadcast_shapes(tuple(batch_shape), scale.shape[:-2])
+    if chi2 is None:
+        i = torch.arange(n, dtype=dt, device=dev)
+        alpha = ((torch.as_tensor(df, dtype=dt, device=dev) - i) / 2.0
+                 ).expand(batch + (n,)).contiguous()
+        chi2 = 2.0 * torch._standard_gamma(alpha, generator=generator)
+    if off is None:
+        A = torch.randn(batch + (n, n), generator=generator, dtype=dt,
+                        device=dev).tril(-1)
+    else:
+        A = torch.zeros(batch + (n, n), dtype=dt, device=dev)
+        rows, cols = np.tril_indices(n, -1)
+        A[..., torch.as_tensor(rows), torch.as_tensor(cols)] = off
+    A = A + torch.diag_embed(torch.sqrt(chi2.expand(batch + (n,))))
+    LA = cholesky(scale) @ A
     return LA @ LA.transpose(-1, -2)
 
 

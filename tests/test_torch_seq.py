@@ -352,5 +352,5 @@ def test_seq_fit_scan_on_cpu(cls, kw):
 def test_seq_marginal_kind_raises():
     seqs, _, _ = seq_case()
     s = samplers.SeqSVMSampler(seqs, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="has no analytic message passing"):
         s.fit_scan("SGLD", num_iters=1, kind="marginal")
