@@ -113,6 +113,35 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      with the time per sweep; and a systematic SVM fit at N=8192, beyond
      K1's shared memory, which must take the unfused route (0 K1
      launches) while N=4096 still launches K1.
+ 20. PaRIS (plain PyTorch around the resample-apply kernel, which it
+     launches once per window step on the particles alone, K = 1): the
+     kernel against its plain version, bitwise, at C=8192, N=100 and at
+     C=64, N=1000, then timed; ``PARIS_100`` of the JAX package's
+     experiment grid (``SVMSampler.fit_scan("SGLD", pf="paris", N=100,
+     S=40, B=10)`` at 8192 chains, 20 timed iterations: 20 * 60
+     resample-apply launches, no K1); the exchange-rate demo's LD leg
+     (N=1000, the whole series of T=1000, 64 chains, 2 iterations: 1000
+     launches an iteration) and its Seq LD leg (``SeqSVMSampler``, every
+     sequence of ``SEQ_LENGTHS`` whole, through the valid gate, 16 chains,
+     1 iteration), with their peak memory; PaRIS's LGSSM score (1024
+     chains, T=16, N=256, full window) within |z| < 5 of the Kalman
+     gradient, ``paris_ar`` within |z| < 5 of ``paris`` with its mean
+     accept-reject rounds, and the cost of reading whether every lane has
+     accepted (every 8 rounds, every round, never); PaRIS on the card
+     against the CPU on the same draws and backward indices (rtol = atol =
+     1e-4; at most 2% of the chains off it, where a forward resampling
+     choice flips at a CDF near-tie), and one rewiring step on the same
+     carry (every entry within rtol = atol = 1e-4) and backward draw (at
+     most 0.1% of lanes flipped).
+ 21. the steppers on K1's path (systematic, ``rng="kernel"``, 8192
+     chains, N=1024, S=40, B=10, T=1000, 20 timed iterations each after a
+     2-iteration warm-up): SGLD, SGRLD and SGRD on ``LGSSMSampler``, SGLD,
+     SGD, ADAGRAD (a second call continuing its state) and SGLD-CV on
+     ``SVMSampler``, one K1 launch per gradient (two per SGLD-CV
+     iteration); ``fit_scan_chunked(num_iters=10, chunk_iters=4)`` at 256
+     chains bitwise equal to one ``fit_scan(num_iters=10)`` from the same
+     seed; ``fit_timed(chunk_iters=50)`` for 2 s; recovery of A from 0.5
+     toward 0.9 by SGRLD on the LGSSM (256 chains, 200 iterations).
 The last three lines are the kernel report (JSON), the card's
 ``nvidia-smi`` name and power limit, and the result (JSON).
 Exits non-zero without a result when no CUDA device is available.
@@ -470,6 +499,447 @@ def exact_phase(dev, card):
         want = ((it_r, 0) if on_k1 else (0, it_r * W)) if cuda else (0, 0)
         if got != want:
             raise AssertionError(f"N={n} took the wrong route: {got}")
+
+
+# Phase 20's and 21's sizes on the card; a CPU rehearsal passes smaller
+# ones.  PARIS_100 is an SVM entry of the JAX package's experiment grid
+# (sgmcmc_tpu/experiments/driver.py:332-334), the LD legs the exchange-rate
+# demo's (demo/exchange_rate/exchange_rate_demo.py:84).
+PARIS_SIZES = dict(grid=(C_BENCH, 100, ITERS), ld=(64, 1000, 2),
+                   seq=(16, 1000, SEQ_LENGTHS), oracle=(1024, 16, 256),
+                   cpu=(64, 256), T=T)
+STEPPER_SIZES = dict(C=C_BENCH, N=N, iters=ITERS, chunked=256, timed=2.0,
+                     rec=(256, 200), T=T)
+
+
+def paris_phase(dev, card, sizes=PARIS_SIZES):
+    """Phase 20 on ``dev`` (the CPU for a rehearsal at small ``sizes``):
+    PaRIS through the public samplers, resample-apply at its shapes, the
+    LGSSM score against the Kalman gradient, paris_ar against paris in law,
+    and the card against the CPU.  Returns the report's numbers."""
+    from sgmcmc_tpu_torch.inference import samplers, sgmcmc
+    from sgmcmc_tpu_torch.models import lgssm, registry, svm
+    from sgmcmc_tpu_torch.ops import buffered, smoothers
+    from sgmcmc_tpu_torch.ops.cuda import fused_pf, resample
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(20)
+    T_len = sizes["T"]
+    ys, _ = svm.generate_data(gen, svm.from_scalars(0.9, 0.5, 1.0,
+                                                    device=dev), T_len)
+    out = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib():
+        return (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+                else float("nan"))
+
+    def launches():
+        return (fused_pf.fused_window.launches,
+                resample.resample_apply.launches)
+
+    def fit(smp, n_iters, C, expect_ra, **kw):
+        """One timed fit_scan: (seconds, (K1, resample-apply) launches,
+        peak GiB)."""
+        peak_reset()
+        reset_counts(fused_pf, resample)
+        t0 = time.perf_counter()
+        _, aux = smp.fit_scan("SGLD", num_iters=n_iters, epsilon=0.1,
+                              num_chains=C, record="none", return_aux=True,
+                              **kw)
+        float(aux[:, -1].sum())                   # synchronises
+        dt = time.perf_counter() - t0
+        got = launches()
+        p = smp.parameters
+        check_finite(f"the PaRIS fit {kw}", aux,
+                     *[getattr(p, f) for f in p.__dataclass_fields__])
+        if cuda and got != (0, expect_ra):
+            raise AssertionError(f"(K1, resample-apply) launches {got}, "
+                                 f"expected (0, {expect_ra}), for {kw}")
+        return dt, got, peak_gib()
+
+    # (a) resample-apply at the PaRIS paths' shapes (K = D = 1: the
+    # particles alone), bitwise, then timed
+    C_g, N_g, it_g = sizes["grid"]
+    C_l, N_l, it_l = sizes["ld"]
+    ra = {}
+    for label, C, n_part in (("paris_100", C_g, N_g), ("paris_ld", C_l, N_l)):
+        lw = 2.0 * torch.randn((C, n_part), generator=gen, device=dev)
+        pos = torch.rand((C, n_part), generator=gen, device=dev)
+        vals = torch.randn((C, n_part, 1), generator=gen, device=dev)
+        cdf = resample.weights_cdf(lw)
+        out_k = resample.resample_apply(pos, cdf, vals)
+        out_r = resample.resample_apply_reference(pos, cdf, vals)
+        sync()
+        same = bool(torch.equal(out_k, out_r))
+        err = float((out_k - out_r).abs().max())
+        row = dict(max_abs_err=err)
+        msg = ""
+        if cuda:
+            ms = cuda_ms(lambda: resample.resample_apply(pos, cdf, vals), 200)
+            plain = cuda_ms(lambda: resample.resample_apply_reference(
+                pos, cdf, vals), 200)
+            lib = cuda_ms(lambda: resample.resample_apply_reference(
+                pos, cdf, vals), 200)
+            nbytes = 4 * (pos.numel() + cdf.numel() + 2 * vals.numel())
+            bnd, by = bound_ms(nbytes, C * n_part * (n_part.bit_length() + 1))
+            row.update(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                       bound_by=by)
+            msg = (f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, PyTorch call "
+                   f"{lib:.4f} ms, bound {bnd:.4f} ms by {by} ({card})")
+        ra[label] = row
+        phase("20 resample-apply", f"{label}: C={C} N={n_part} K=1: max "
+              f"|kernel - plain| = {err!r}, bitwise equal {same}{msg}")
+        if not same:
+            raise AssertionError(f"resample-apply differs from its plain "
+                                 f"version at {label}")
+    out["resample_apply"] = ra
+
+    # (b) PARIS_100: the experiment grid's entry at full width
+    smp = samplers.SVMSampler(observations=ys, device=dev, seed=21)
+    smp.parameters = svm.from_scalars(0.5, 1.0, 2.0)
+    gkw = dict(pf="paris", N=N_g, subsequence_length=S, buffer_length=B)
+    fit(smp, 1, C_g, W, **gkw)                              # warm-up
+    dt, got, peak = fit(smp, it_g, C_g, it_g * W, **gkw)
+    out["grid_launches"] = got[1]
+    phase("20 PARIS_100", f"SVMSampler.fit_scan SGLD pf='paris' N={N_g} "
+          f"S={S} B={B} T={T_len} C={C_g}: {it_g} iterations in {dt:.3f} s, "
+          f"(K1, resample-apply) launches {got}, {C_g * it_g / dt:.1f} "
+          f"aggregate steps/s, peak {peak:.3f} GiB ({card})")
+    del smp
+
+    # (c) the demo's LD leg: the whole series, N=1000
+    smp = samplers.SVMSampler(observations=ys, device=dev, seed=22)
+    smp.parameters = svm.from_scalars(0.5, 1.0, 2.0)
+    lkw = dict(pf="paris", N=N_l, subsequence_length=-1,
+               resample_mode="auto")
+    dt, got, peak = fit(smp, it_l, C_l, it_l * T_len, **lkw)
+    out["ld_launches"] = got[1]
+    phase("20 LD", f"SVMSampler.fit_scan SGLD {lkw} T={T_len} C={C_l}: "
+          f"{it_l} iterations in {dt:.3f} s, (K1, resample-apply) launches "
+          f"{got} ({got[1] // it_l} a iteration), {C_l * it_l / dt:.2f} "
+          f"aggregate steps/s, peak {peak:.3f} GiB ({card})")
+    del smp
+
+    # (d) the Seq LD leg: every sequence, whole, through the valid gate
+    C_s, N_s, lengths = sizes["seq"]
+    seqs = [svm.generate_data(gen, svm.from_scalars(0.9, 0.5, 1.0,
+                                                    device=dev), n)[0]
+            for n in lengths]
+    smp = samplers.SeqSVMSampler(seqs, device=dev, seed=23)
+    smp.parameters = svm.from_scalars(0.5, 1.0, 2.0)
+    skw = dict(pf="paris", N=N_s, subsequence_length=-1, num_sequences=-1)
+    dt, got, peak = fit(smp, 1, C_s, max(lengths), **skw)
+    phase("20 Seq LD", f"SeqSVMSampler.fit_scan SGLD {skw} on "
+          f"{len(lengths)} sequences of {min(lengths)}-{max(lengths)} steps, "
+          f"C={C_s} ({C_s * len(lengths)} rows, W={max(lengths)}): 1 "
+          f"iteration in {dt:.3f} s, (K1, resample-apply) launches {got}, "
+          f"peak {peak:.3f} GiB ({card})")
+    del smp, seqs
+
+    # (e) PaRIS's LGSSM score against the Kalman gradient, and paris_ar
+    # against paris in law on the same configuration
+    C_o, T_o, N_o = sizes["oracle"]
+    truth = lgssm.from_scalars(0.8, 0.5, 1.0, device=dev)
+    ys_o, _ = lgssm.generate_data(gen, truth, T_o)
+    exact = lgssm.gradient_marginal_loglikelihood(truth, ys_o)
+    exact_vec = torch.stack([exact.LRinv_vec[0, 0], exact.LQinv_vec[0, 0],
+                             exact.C[0, 0, 0], exact.A[0, 0, 0]])
+    rows = lgssm.LGSSMParams(*[x.expand((C_o,) + x.shape[1:]).contiguous()
+                               for x in (truth.A, truth.C, truth.LQinv_vec,
+                                         truth.LRinv_vec)])
+    ar = smoothers.accept_reject_backward_indices
+    scores = {}
+    for pf in ("paris", "paris_ar"):
+        cfg = sgmcmc.PFScoreConfig(n_particles=N_o, smoother=pf,
+                                   resample_mode="auto")
+        score = sgmcmc.make_pf_score_fn(
+            lgssm.OPTIMAL_KERNEL, lgssm.grad_statistic, 4, lgssm.unpack_grad,
+            cfg, T_o, prior_mean_var_fn=registry.LGSSM.prior_mean_var)
+        ar.calls = ar.rounds = ar.syncs = 0
+        reset_counts(fused_pf, resample)
+        sync()
+        t0 = time.perf_counter()
+        g, ll = score(gen, rows, ys_o)
+        sync()
+        dt = time.perf_counter() - t0
+        f = torch.stack([g.LRinv_vec[:, 0], g.LQinv_vec[:, 0], g.C[:, 0, 0],
+                         g.A[:, 0, 0]], 1).double()
+        check_finite(f"PaRIS's LGSSM score ({pf})", f, ll)
+        scores[pf] = f
+        zval = (f.mean(0) - exact_vec) / (f.std(0) / C_o ** 0.5 + 1e-9)
+        msg = ""
+        if pf == "paris_ar":
+            msg = (f"; accept-reject rounds {ar.rounds} in {ar.calls} steps "
+                   f"(mean {ar.rounds / ar.calls:.1f}, budget "
+                   f"{smoothers._default_ar_budget(N_o)}), host reads "
+                   f"{ar.syncs}")
+        phase("20 LGSSM oracle", f"pf={pf!r} T={T_o} N={N_o} over {C_o} "
+              f"chains in {dt:.3f} s, (K1, resample-apply) launches "
+              f"{launches()}; z [LRinv, LQinv, C, A] = "
+              f"{[round(float(v), 3) for v in zval]}; exact "
+              f"{[round(float(v), 4) for v in exact_vec]}{msg}")
+        if not bool((zval.abs() < 5).all()):
+            raise AssertionError(f"{pf}'s score is off the exact gradient: "
+                                 f"z = {zval}")
+        if cuda and launches() != (0, T_o):
+            raise AssertionError(f"{pf}: launches {launches()}")
+    a, b = scores["paris"], scores["paris_ar"]
+    z_law = (b.mean(0) - a.mean(0)) / (
+        (a.var(0) / C_o + b.var(0) / C_o) ** 0.5 + 1e-9)
+    phase("20 paris_ar law", f"paris_ar against paris, {C_o} chains each: z "
+          f"[LRinv, LQinv, C, A] = {[round(float(v), 3) for v in z_law]}")
+    if not bool((z_law.abs() < 5).all()):
+        raise AssertionError(f"paris_ar differs from paris in law: {z_law}")
+    # what reading whether every lane has accepted costs: the default
+    # interval, every round, and never before the budget (masked rounds)
+    cfg = sgmcmc.PFScoreConfig(n_particles=N_o, smoother="paris_ar",
+                               resample_mode="auto")
+    score = sgmcmc.make_pf_score_fn(
+        lgssm.OPTIMAL_KERNEL, lgssm.grad_statistic, 4, lgssm.unpack_grad,
+        cfg, T_o, prior_mean_var_fn=registry.LGSSM.prior_mean_var)
+    draws = score.draw(gen, C_o, dev)
+    default_every = smoothers.AR_CHECK_EVERY
+    costs = {default_every: [], 1: [], 10 ** 9: []}
+    reads = {}
+    try:
+        # in turns (a, b, c, c, b, a), the same draws and rounds each time
+        for every in (default_every, 1, 10 ** 9, 10 ** 9, 1, default_every):
+            smoothers.AR_CHECK_EVERY = every
+            ar.calls = ar.rounds = ar.syncs = 0
+            sync()
+            t0 = time.perf_counter()
+            score(torch.Generator(device=dev).manual_seed(5), rows, ys_o,
+                  draws)
+            sync()
+            costs[every].append((time.perf_counter() - t0) * 1e3)
+            reads[every] = (ar.rounds, ar.syncs)
+    finally:
+        smoothers.AR_CHECK_EVERY = default_every
+    phase("20 paris_ar reads", f"one score call, T={T_o}, {C_o} chains, "
+          f"reading accepted.all() " + "; ".join(
+              f"every {e if e < 10 ** 9 else 'never'}: "
+              f"{' / '.join(f'{t:.1f}' for t in ts)} ms, {reads[e][0]} "
+              f"rounds, {reads[e][1]} host reads"
+              for e, ts in costs.items()) + f" ({card})")
+
+    # (f) the card against the CPU.  The whole window on the same draws
+    # and J: the card's exp and log round differently from the CPU's, so a
+    # forward resampling choice can flip at a CDF near-tie and the chain
+    # then follows other particles (phase 3 allows K1 up to 1% of such
+    # chains against its plain version); at most 2% of the chains may
+    # leave rtol = atol = 1e-4.  One step on the same carry: the rewiring
+    # by J within rtol = atol = 1e-4 everywhere, the backward draw at the
+    # same v with at most 0.1% of its lanes flipped.
+    if cuda:
+        C_c, N_c = sizes["cpu"]
+        params = svm.SVMParams(
+            A=(0.5 + 0.45 * torch.rand((C_c, 1, 1), generator=gen,
+                                       device=dev)),
+            LQinv_vec=torch.full((C_c, 1), 1.2, device=dev),
+            LRinv_vec=torch.full((C_c, 1), 0.9, device=dev))
+        cpu = torch.device("cpu")
+        win = ys[None, :W].expand(C_c, -1, -1).contiguous()
+        args = dict(z0=torch.randn((C_c, 1, N_c), generator=gen, device=dev),
+                    normals=torch.randn((C_c, W, 1, N_c), generator=gen,
+                                        device=dev),
+                    u=torch.rand((C_c, W, N_c), generator=gen, device=dev),
+                    J=torch.randint(0, N_c, (C_c, W, N_c, 2), generator=gen,
+                                    device=dev),
+                    step_weights=torch.rand((C_c, W), generator=gen,
+                                            device=dev) + 0.5,
+                    prior_mean=torch.zeros(C_c, device=dev),
+                    prior_var=svm.stationary_variance(params))
+        res = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            o = buffered.run_buffered_pf(
+                svm.KERNEL, svm.grad_statistic, params.to(d), win.to(d),
+                statistic_dim=3, smoother="paris",
+                **{k: v.to(d) for k, v in args.items()})
+            res[where] = torch.cat([o.mean_statistic,
+                                    o.loglikelihood[:, None]], 1).cpu()
+        diff = (res["card"] - res["cpu"]).abs()
+        bad = int((diff > 1e-4 + 1e-4 * res["cpu"].abs()).any(1).sum())
+        check_finite("PaRIS on the card", res["card"])
+        carry = smoothers.PFCarry(
+            torch.randn((C_c, N_c, 1), generator=gen, device=dev),
+            torch.randn((C_c, N_c), generator=gen, device=dev),
+            torch.randn((C_c, N_c, 3), generator=gen, device=dev),
+            torch.zeros(C_c, device=dev))
+        new = torch.randn((C_c, N_c, 1), generator=gen, device=dev)
+        inp = smoothers.PFStepInput(
+            z=None, u=None, y=win[:, 3], weight=args["step_weights"][:, 3],
+            in_window=torch.ones(C_c, device=dev), t=3)
+        v = torch.rand((C_c, N_c, 2), generator=gen, device=dev)
+        step = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            p_d = params.to(d)
+            c_d = smoothers.PFCarry(*[x.to(d) for x in carry])
+            i_d = inp._replace(y=inp.y.to(d), weight=inp.weight.to(d),
+                               in_window=inp.in_window.to(d))
+            step[where] = (
+                smoothers._rewired_statistics(
+                    svm.grad_statistic, p_d, c_d, new.to(d),
+                    args["J"][:, 3].to(d), i_d).cpu(),
+                smoothers._backward_indices(
+                    svm.KERNEL, p_d, c_d.particles, c_d.log_weights,
+                    new.to(d), v.to(d), None).cpu())
+        rw_k, rw_c = step["card"][0], step["cpu"][0]
+        rw_err = float((rw_k - rw_c).abs().max())
+        rw_bad = int((~torch.isclose(rw_k, rw_c, rtol=1e-4, atol=1e-4)).sum())
+        flips = int((step["card"][1] != step["cpu"][1]).sum())
+        phase("20 card vs CPU", f"PaRIS, {C_c} chains, N={N_c}, W={W}, the "
+              f"same draws and J: chains beyond rtol = atol = 1e-4: {bad} "
+              f"(max |card - CPU| {float(diff.max()):.3e}); one step on the "
+              f"same carry: rewiring max |card - CPU| = {rw_err:.3e}, "
+              f"entries beyond rtol = atol = 1e-4: {rw_bad}; backward draw "
+              f"at the same v: {flips} of {v.numel()} lanes differ")
+        if bad > 0.02 * C_c or rw_bad or flips > 1e-3 * v.numel():
+            raise AssertionError(f"PaRIS on the card differs from the CPU: "
+                                 f"{bad} chains, {rw_bad} rewired entries, "
+                                 f"{flips} backward lanes")
+    phase("20 seconds", f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def stepper_phase(dev, card, sizes=STEPPER_SIZES):
+    """Phase 21 on ``dev`` (the CPU for a rehearsal at small ``sizes``):
+    the steppers through ``fit_scan`` on K1's path, ``fit_scan_chunked``
+    against one ``fit_scan``, ``fit_timed`` with chunks, and recovery by
+    SGRLD.  Returns K1's launches per stepper."""
+    from sgmcmc_tpu_torch.inference import samplers
+    from sgmcmc_tpu_torch.models import lgssm, svm
+    from sgmcmc_tpu_torch.ops.cuda import fused_pf, philox, resample
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    C, n_part, iters, T_len = (sizes["C"], sizes["N"], sizes["iters"],
+                               sizes["T"])
+    kw = dict(N=n_part, subsequence_length=S, buffer_length=B,
+              resampler="systematic", rng="kernel")
+    data = {"svm": svm.generate_data(gen, svm.from_scalars(
+                0.9, 0.5, 1.0, device=dev), T_len)[0],
+            "lgssm": lgssm.generate_data(gen, lgssm.from_scalars(
+                0.9, 0.5, 1.0, device=dev), T_len)[0]}
+    cls = {"svm": samplers.SVMSampler, "lgssm": samplers.LGSSMSampler}
+    start = {"svm": svm.from_scalars(0.5, 1.0, 2.0),
+             "lgssm": lgssm.from_scalars(0.5, 1.0, 2.0)}
+
+    def run(smp, iter_type, n_iters, per_iter, **fkw):
+        """One fit_scan from zeroed counts: (seconds, (K1, resample-apply,
+        Philox) launches, peak GiB)."""
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts(fused_pf, resample, philox)
+        t0 = time.perf_counter()
+        _, aux = smp.fit_scan(iter_type, num_iters=n_iters, epsilon=0.01,
+                              num_chains=C, record="none", return_aux=True,
+                              **kw, **fkw)
+        float(aux[:, -1].sum())                   # synchronises
+        dt = time.perf_counter() - t0
+        got = (fused_pf.fused_window.launches,
+               resample.resample_apply.launches,
+               philox.philox_normals.launches)
+        p = smp.parameters
+        check_finite(f"the {iter_type} fit", aux,
+                     *[getattr(p, f) for f in p.__dataclass_fields__])
+        # one draw a step: SGLD-CV's two gradients share its Philox seeds
+        want = (per_iter * n_iters, 0, n_iters)
+        if cuda and got != want:
+            raise AssertionError(f"{iter_type}: (K1, resample-apply, "
+                                 f"Philox) launches {got}, expected {want}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+        return dt, got, peak
+
+    k1 = {}
+    for model, iter_type, per_iter in (
+            ("lgssm", "SGLD", 1), ("lgssm", "SGRLD", 1),
+            ("lgssm", "SGRD", 1), ("svm", "SGLD", 1), ("svm", "SGD", 1),
+            ("svm", "ADAGRAD", 1), ("svm", "SGLD-CV", 2)):
+        smp = cls[model](observations=data[model], device=dev, seed=24)
+        smp.parameters = start[model]
+        fkw = {}
+        if iter_type == "SGLD-CV":
+            smp._chain_init_params(C, "replicate")
+            fkw = dict(centering_parameters=start[model],
+                       centering_gradient=smp.noisy_gradient(**kw))
+        run(smp, iter_type, 2, per_iter, **fkw)             # warm-up
+        dt, got, peak = run(smp, iter_type, iters, per_iter, **fkw)
+        msg = ""
+        if iter_type == "ADAGRAD":                 # a second, continuing call
+            dt2, got2, _ = run(smp, iter_type, iters, per_iter)
+            t_acc = smp._adagrad_state.t
+            if int(t_acc.min()) != int(t_acc.max()) or \
+                    int(t_acc[0]) != 2 + 2 * iters:
+                raise AssertionError(f"ADAGRAD's state did not continue: "
+                                     f"t = {t_acc[:4]}")
+            msg = (f"; its continuing call {dt2:.3f} s, "
+                   f"{C * iters / dt2:.1f} steps/s, state t = "
+                   f"{int(t_acc[0])}")
+        k1[(model, iter_type)] = got[0]
+        phase("21 steppers", f"{cls[model].__name__}.fit_scan "
+              f"{iter_type!r} systematic rng='kernel' C={C} N={n_part} S={S} "
+              f"B={B} T={T_len}: {iters} iterations in {dt:.3f} s, (K1, "
+              f"resample-apply, Philox) launches {got}, {C * iters / dt:.1f} "
+              f"aggregate steps/s, peak {peak:.3f} GiB{msg} ({card})")
+        del smp
+
+    # fit_scan_chunked against one fit_scan from the same seed
+    C_k = sizes["chunked"]
+    traces = []
+    for chunked in (True, False):
+        smp = samplers.SVMSampler(observations=data["svm"], device=dev,
+                                  seed=25)
+        smp.parameters = start["svm"]
+        if chunked:
+            traces.append(smp.fit_scan_chunked(
+                "SGLD", num_iters=10, chunk_iters=4, num_chains=C_k,
+                epsilon=0.05, **kw))
+        else:
+            traces.append(smp.fit_scan("SGLD", num_iters=10, num_chains=C_k,
+                                       epsilon=0.05, **kw))
+    same = all(torch.equal(getattr(traces[0], f), getattr(traces[1], f).cpu())
+               for f in ("A", "LQinv_vec", "LRinv_vec"))
+    phase("21 chunked", f"fit_scan_chunked(num_iters=10, chunk_iters=4) at "
+          f"{C_k} chains bitwise equal to one fit_scan(num_iters=10): {same}")
+    if not same:
+        raise AssertionError("fit_scan_chunked differs from fit_scan")
+
+    # fit_timed with chunks, for about sizes["timed"] seconds
+    smp = samplers.SVMSampler(observations=data["svm"], device=dev, seed=26)
+    smp.parameters = start["svm"]
+    params, times = smp.fit_timed("SGLD", sizes["timed"], epsilon=0.05,
+                                  chunk_iters=50, max_samples=100, **kw)
+    check_finite("fit_timed's trace", torch.cat([p.A for p in params]))
+    phase("21 fit_timed", f"fit_timed('SGLD', {sizes['timed']} s, "
+          f"chunk_iters=50, max_samples=100), one chain: {len(params)} "
+          f"recorded entries up to {times[-1]:.3f} s")
+
+    # recovery of A from 0.5 toward 0.9 by SGRLD on the LGSSM
+    C_r, it_r = sizes["rec"]
+    smp = samplers.LGSSMSampler(observations=data["lgssm"], device=dev,
+                                seed=27)
+    smp.parameters = start["lgssm"]
+    trace = smp.fit_scan("SGRLD", num_iters=it_r, epsilon=0.05,
+                         num_chains=C_r, record="all", **kw)
+    a_mean = float(trace.A[:, -it_r // 4:].mean())
+    phase("21 SGRLD recovery", f"LGSSMSampler SGRLD, {C_r} chains: "
+          f"chain-mean A over the last {it_r // 4} of {it_r} iterations: "
+          f"{a_mean:.4f} (start 0.5, truth 0.9)")
+    if not abs(a_mean - 0.9) < abs(a_mean - 0.5):
+        raise AssertionError(f"SGRLD did not move A toward 0.9: {a_mean}")
+    seconds = time.perf_counter() - t_phase
+    phase("21 seconds", f"{seconds:.1f} s")
+    return k1
 
 
 def main():
@@ -1496,6 +1966,13 @@ def main():
     # shared memory (no kernel of their own)
     exact_phase(dev, card)
 
+    # 20. PaRIS (resample-apply once per window step) and 21. the steppers
+    # and the sampler surface (K1 once per gradient)
+    paris = paris_phase(dev, card)
+    ra_err = max(ra_err, *(r["max_abs_err"]
+                           for r in paris["resample_apply"].values()))
+    steps_k1 = stepper_phase(dev, card)
+
     main_shape = ra_times["K2b"]
     k1_tpu = "sgmcmc_tpu/ops/pallas/fused_pf.py:121"
 
@@ -1559,12 +2036,30 @@ def main():
         k1_entry("svm_valid_gate_rng_kernel", "svm", " (valid_gate, :342-352)",
                  ld_launches, seq_k1["svm_valid_gate_rng_kernel"],
                  "philox.cuh"),
+        # K1 on the steppers' fits: the variants above, at the same shape
+        *[k1_entry(f"{body}_rng_kernel_{it.lower().replace('-', '_')}",
+                   body, " (rng='kernel'; fit_scan " + it + ")",
+                   steps_k1[(model, it)], numbers, "philox.cuh")
+          for model, body, numbers in (
+              ("lgssm", "lgssm_optimal", lg["lgssm_optimal"]),
+              ("svm", "svm", dict(max_abs_err=rng_err, ms=rng_ms,
+                                  plain_ms=rng_plain, bound_ms=rng_bound,
+                                  bound_by=rng_by)))
+          for (m_k, it) in steps_k1 if m_k == model and it != "SGLD"],
         {"name": "resample_apply", "route": "cuda",
          "source": "sgmcmc_tpu_torch/csrc/resample_apply.cu",
          "replaces": "sgmcmc_tpu/ops/pallas/resample.py:178 (K2a), "
                      ":232 (K2b), :31 (K3)",
          "launches": ra_launches[1024], "max_abs_err": ra_err,
          **main_shape},
+        # the same kernel on the PaRIS paths, at their shapes (K = 1)
+        *[{"name": f"resample_apply_{label}", "route": "cuda",
+           "source": "sgmcmc_tpu_torch/csrc/resample_apply.cu",
+           "replaces": "sgmcmc_tpu/ops/pallas/resample.py:178 (K2a), "
+                       ":232 (K2b), :31 (K3)",
+           "launches": paris[key], **paris["resample_apply"][label]}
+          for label, key in (("paris_100", "grid_launches"),
+                             ("paris_ld", "ld_launches"))],
         {"name": "philox_normals", "route": "cuda",
          "source": "sgmcmc_tpu_torch/csrc/philox_normals.cu",
          "replaces": "scripts/tpu_probe_kernel_rng.py:15",

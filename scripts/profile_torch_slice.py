@@ -6,6 +6,8 @@
         [--particles 1024] [--rng host|kernel]
         [--model svm|lgssm|garch|svjm] [--kernel optimal|prior]
         [--kind pf|marginal|complete] [--gibbs]
+        [--pf poyiadjis_N|paris|paris_ar|...] [--subsequence 40]
+        [--iter-type SGLD|SGRLD|SGD|SGRD|ADAGRAD|SGLD-CV]
 
 Runs ``SVMSampler.fit_scan("SGLD", record="none")`` at the benchmark
 configuration (SVM, T=1000, N=1024, S=40, B=10, Poyiadjis O(N), systematic
@@ -17,7 +19,12 @@ runs ``LGSSMSampler`` on the scalar LGSSM (true A=0.9, C=1, Q=0.5, R=1;
 start A=0.5, Q=1, R=2), ``GARCHSampler`` (true alpha=0.1, beta=0.6,
 gamma=0.2, R=0.5; start 0.2, 0.3, 0.3, 1) or ``SVJMSampler`` (true A=0.9,
 Q=0.5, R=1, pJ=0.1, QJ=2; start 0.5, 1, 2, 0.05, 1) instead, ``--kernel``
-selects the particle kernel.  With ``--model lgssm``, ``--kind marginal``
+selects the particle kernel, ``--pf`` the smoother (``paris`` /
+``paris_ar``: PaRIS, one resample-apply launch per window step),
+``--subsequence`` the subsequence length (-1: the whole series, no
+buffer) and ``--iter-type`` the stepper (SGRLD and SGRD need the LGSSM's
+preconditioner; SGLD-CV centres at the start parameters, with their
+noisy gradient as the centering gradient).  With ``--model lgssm``, ``--kind marginal``
 or ``complete`` runs the exact-message score kinds instead of the particle
 filter's, and ``--gibbs`` times ``--iters`` blocked-Gibbs sweeps
 (``LGSSMSampler.sample_gibbs`` on every chain) in place of a fit; a step
@@ -100,6 +107,11 @@ def main():
     ap.add_argument("--kind", default="pf",
                     choices=("pf", "marginal", "complete"))
     ap.add_argument("--gibbs", action="store_true")
+    ap.add_argument("--pf", default="poyiadjis_N")
+    ap.add_argument("--subsequence", type=int, default=S)
+    ap.add_argument("--iter-type", default="SGLD",
+                    choices=("SGLD", "SGRLD", "SGD", "SGRD", "ADAGRAD",
+                             "SGLD-CV"))
     args = ap.parse_args()
     N = args.particles
     if not torch.cuda.is_available():
@@ -130,7 +142,9 @@ def main():
                                                          T)
     sampler = cls(observations=ys, device="cuda", seed=2)
     sampler.parameters = start
-    kw = dict(N=N, subsequence_length=S, buffer_length=B, pf="poyiadjis_N",
+    full = args.subsequence == -1
+    kw = dict(N=N, subsequence_length=args.subsequence,
+              buffer_length=0 if full else B, pf=args.pf,
               resampler=args.resampler, rng=args.rng, kernel=args.kernel,
               kind=args.kind)
     Z = sampler.model.get_kernel(args.kernel).noise_dim
@@ -141,9 +155,14 @@ def main():
         print(f"config: {args.model} kind={args.kind}, {args.chains} chains, "
               f"S={S}, B={B}, T={T}")
     else:
-        print(f"config: {args.model} (kernel {args.kernel or 'default'}), "
-              f"{args.chains} chains, N={N}, S={S}, B={B}, T={T}, Poyiadjis "
-              f"O(N), {args.resampler} resampling, rng={args.rng}")
+        print(f"config: {args.iter_type}, {args.model} (kernel "
+              f"{args.kernel or 'default'}), {args.chains} chains, N={N}, "
+              f"S={kw['subsequence_length']}, B={kw['buffer_length']}, "
+              f"T={T}, {args.pf}, {args.resampler} resampling, "
+              f"rng={args.rng}")
+    if args.iter_type == "SGLD-CV":
+        kw.update(centering_parameters=start, centering_gradient=(
+            sampler.noisy_gradient(**kw)))
 
     if args.gibbs:
         from sgmcmc_tpu_torch.models.base import params_map
@@ -155,9 +174,9 @@ def main():
             for _ in range(args.iters):
                 sampler.sample_gibbs()
             return float(sampler.parameters.A.sum())    # synchronises
-        _, aux = sampler.fit_scan("SGLD", num_iters=args.iters, epsilon=0.1,
-                                  num_chains=args.chains, record="none",
-                                  return_aux=True, **kw)
+        _, aux = sampler.fit_scan(args.iter_type, num_iters=args.iters,
+                                  epsilon=0.1, num_chains=args.chains,
+                                  record="none", return_aux=True, **kw)
         return float(aux[:, -1].sum())          # synchronises
 
     torch.cuda.reset_peak_memory_stats()

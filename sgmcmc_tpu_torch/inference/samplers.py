@@ -1,15 +1,20 @@
-"""User-facing sampler classes (counterpart of the SGLD ``fit_scan`` path
-of ``sgmcmc_tpu/inference/samplers.py``, with its multi-sequence samplers,
-the likelihood surface and the LGSSM's blocked Gibbs sampler).
+"""User-facing sampler classes (counterpart of
+``sgmcmc_tpu/inference/samplers.py``: the steppers, ``fit``,
+``fit_timed``, ``fit_scan`` for every gradient iter type and
+``fit_scan_chunked``, the chain plumbing, the likelihood surface, the
+multi-sequence samplers and the LGSSM's blocked Gibbs sampler).
 
 A :class:`Sampler` holds the model, the observations, the prior, the
-parameters, a seeded ``torch.Generator`` and its ``device``: the card
-unless the caller passes ``device="cpu"``.  Without a card the default
-raises; it never falls back to the CPU.  The likelihoods return a float
-when the sampler holds one chain and a ``[C]`` tensor for C chains.
+parameters (always with a leading chain axis: ``[1, ...]`` for one
+chain), a seeded ``torch.Generator`` and its ``device``: the card unless
+the caller passes ``device="cpu"``.  Without a card the default raises;
+it never falls back to the CPU.  The likelihoods return a float when the
+sampler holds one chain and a ``[C]`` tensor for C chains.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 import warnings
 
 import numpy as np
@@ -17,7 +22,20 @@ import torch
 
 from ..models.base import params_map
 from ..models.registry import ModelAPI, get_model
+from ..utils.trace import unstack_trace
 from . import sgmcmc
+
+# fit_scan's iter types that run one stepper of Sampler._step
+_STEP_OF = {"SGLD": "sgld", "SGRLD": "sgrld", "SGD": "sgd", "SGRD": "sgrd"}
+FIT_SCAN_TYPES = (*_STEP_OF, "ADAGRAD", "SGLD-CV")
+
+
+def _to_cpu(params):
+    return None if params is None else params_map(lambda x: x.cpu(), params)
+
+
+def _leaves(params):
+    return [getattr(params, f.name) for f in dataclasses.fields(params)]
 
 
 class Sampler:
@@ -43,6 +61,7 @@ class Sampler:
         self.generator.manual_seed(seed)
         self._cache: dict = {}
         self._num_chains: int | None = None
+        self._adagrad_state: sgmcmc.AdagradState | None = None
         # without explicit parameters, one projected prior draw (callers
         # such as the benchmark then overwrite it)
         self.parameters = (parameters if parameters is not None else
@@ -79,31 +98,43 @@ class Sampler:
             resampler=kwargs.get("resampler", "multinomial"),
             resample_mode=kwargs.get("resample_mode", "auto"),
             lambduh=kwargs.get("lambduh", 0.95),
+            n_tilde=kwargs.get("Ntilde", kwargs.get("n_tilde", 2)),
             partition_style=kwargs.get("partition_style", "uniform"),
             ess_threshold=kwargs.get("ess_threshold", None),
             bw_chunk=kwargs.get("bw_chunk", None),
             rng=kwargs.get("rng", "host"),
         )
 
-    def _grad_fn(self, is_scaled: bool = True, kind: str | None = None,
-                 **kwargs):
+    def _grad_fn(self, preconditioned: bool = False, is_scaled: bool = True,
+                 kind: str | None = None, **kwargs):
         """The noisy-gradient function of the score ``kind``: the particle
         filter's (``None`` or ``"pf"``) or, for models with exact message
         passing, the buffered exact-message score (``"marginal"``) or the
         FFBS complete-data score (``"complete"``, ``num_samples`` draws a
-        window).  ``is_scaled=False`` drops the 1/T of the gradient."""
+        window).  ``preconditioned`` applies the model's SGRLD
+        preconditioner; ``is_scaled=False`` drops the 1/T of the
+        gradient."""
         m = self.model
         kind = "pf" if kind is None else kind
         cfg = self._score_config(**kwargs)
         kernel_name = kwargs.get("kernel")
-        key = ("grad", cfg, kind, kernel_name, is_scaled, self.T,
-               self._score_key(**kwargs), kwargs.get("num_samples", 1))
+        key = ("grad", cfg, kind, kernel_name, preconditioned, is_scaled,
+               self.T, self._score_key(**kwargs),
+               kwargs.get("num_samples", 1))
         if key not in self._cache:
+            precond = self._preconditioner() if preconditioned else None
             score = self._make_score(cfg, kernel_name, kind, **kwargs)
             self._cache[key] = sgmcmc.make_noisy_grad_fn(
                 score, lambda p: m.grad_logprior(self.prior, p), self.T,
-                is_scaled=is_scaled)
+                is_scaled=is_scaled, preconditioner=precond)
         return self._cache[key]
+
+    def _preconditioner(self) -> sgmcmc.Preconditioner:
+        m = self.model
+        if m.precondition is None:
+            raise NotImplementedError(f"{m.name} has no preconditioner")
+        return sgmcmc.Preconditioner(m.precondition, m.precondition_noise,
+                                     m.correction_term)
 
     def _score_key(self, **kwargs):
         """What else than the config and kernel selects the score."""
@@ -138,11 +169,6 @@ class Sampler:
         the model's sufficient statistic (on the unfused route)."""
         m = self.model
         cfg = self._score_config(**kwargs)
-        if m.suff_statistic is None:
-            raise NotImplementedError(
-                f"{m.name} has no sufficient statistic in the port yet "
-                "(ROADMAP.md, Queue 1, slice 8: the other steppers and the "
-                "sampler surface)")
         kernel_name = kwargs.get("kernel")
         key = ("loglik", cfg, kernel_name, self.T)
         if key not in self._cache:
@@ -178,6 +204,21 @@ class Sampler:
             raise ValueError(f"Unrecognized kind = '{kind}'")
         return self._per_chain(loglik)
 
+    def noisy_logjoint(self, return_loglike: bool = False, **kwargs):
+        """noisy_loglikelihood + logprior per chain."""
+        ll = self.noisy_loglikelihood(**kwargs)
+        return self._joint(ll, return_loglike)
+
+    def exact_logjoint(self, return_loglike: bool = False):
+        """exact_loglikelihood + logprior per chain."""
+        return self._joint(self.exact_loglikelihood(), return_loglike)
+
+    def _joint(self, ll, return_loglike: bool):
+        lp = self._per_chain(self.model.logprior(self.prior, self.parameters))
+        if return_loglike:
+            return dict(logjoint=ll + lp, loglikelihood=ll)
+        return ll + lp
+
     def exact_loglikelihood(self):
         """The exact marginal log-likelihood per chain (float64)."""
         if self.model.marginal_loglikelihood is None:
@@ -195,7 +236,221 @@ class Sampler:
         return self.model.gradient_marginal_loglikelihood(
             self.parameters, self.observations)
 
+    # -- gradient / steps --------------------------------------------------
+    def noisy_gradient(self, preconditioner: bool = False,
+                       is_scaled: bool = True, check_finite: bool = True,
+                       **kwargs):
+        """The noisy gradient at the current parameters (with the model's
+        preconditioner applied if ``preconditioner``); NaNs raise unless
+        ``check_finite=False``, which skips that one host read."""
+        grad, _ = self._grad_fn(preconditioned=bool(preconditioner),
+                                is_scaled=is_scaled, **kwargs)(
+            self.generator, self.parameters, self.observations)
+        if check_finite and bool(torch.stack(
+                [torch.isnan(x).any() for x in _leaves(grad)]).any()):
+            raise ValueError("NaNs in gradient")
+        return grad
+
+    def _step(self, name: str, epsilon: float, **kwargs):
+        """The stepper ``name`` (``sgld``, ``sgrld``, ``sgd`` or ``sgrd``,
+        preconditioned SGD) as ``step(generator, params, observations) ->
+        (params, loglik)``, without the projection."""
+        T = self.T
+        if name == "sgld":
+            grad_fn = self._grad_fn(**kwargs)
+            return lambda gen, p, obs: sgmcmc.sgld_step(
+                gen, p, obs, grad_fn, epsilon, T)
+        if name == "sgrld":
+            precond = self._preconditioner()
+            grad_fn = self._grad_fn(preconditioned=True, **kwargs)
+            return lambda gen, p, obs: sgmcmc.sgrld_step(
+                gen, p, obs, grad_fn, precond, epsilon, T)
+        if name in ("sgd", "sgrd"):
+            grad_fn = self._grad_fn(preconditioned=name == "sgrd", **kwargs)
+            return lambda gen, p, obs: sgmcmc.sgd_step(
+                gen, p, obs, grad_fn, epsilon)
+        raise ValueError(name)
+
+    def _advance(self, name: str, epsilon: float, **kwargs):
+        new, _ = self._step(name, epsilon, **kwargs)(
+            self.generator, self.parameters, self.observations)
+        self.parameters = self.model.project_parameters(new)
+        return self.parameters
+
+    def sample_sgld(self, epsilon, **kwargs):
+        return self._advance("sgld", epsilon, **kwargs)
+
+    def sample_sgrld(self, epsilon, **kwargs):
+        return self._advance("sgrld", epsilon, **kwargs)
+
+    def step_sgd(self, epsilon, **kwargs):
+        return self._advance("sgd", epsilon, **kwargs)
+
+    def step_precondition_sgd(self, epsilon, **kwargs):
+        """Preconditioned SGD (MAP ascent in the Riemannian metric)."""
+        return self._advance("sgrd", epsilon, **kwargs)
+
+    def _centre(self, centering_parameters, centering_gradient, C: int):
+        """The centre's parameters and gradient over the C chains the step
+        runs (each given for one chain or for C)."""
+        def over_chains(p, what):
+            p = p.to(self.device)
+            if p.num_chains == C:
+                return p
+            if p.num_chains != 1:
+                raise ValueError(f"{what} has {p.num_chains} chains, "
+                                 f"expected 1 or {C}")
+            return params_map(lambda x: x.expand((C,) + x.shape[1:]), p)
+        return (over_chains(centering_parameters, "centering_parameters"),
+                over_chains(centering_gradient, "centering_gradient"))
+
+    def sample_sgld_cv(self, epsilon, centering_parameters,
+                       centering_gradient, **kwargs):
+        """SGLD with control variates: grad = centering_gradient +
+        grad(theta) - grad(centre) on one draw of the score."""
+        grad_fn = self._grad_fn(**kwargs)
+        centre, c_grad = self._centre(centering_parameters,
+                                      centering_gradient,
+                                      self.parameters.num_chains)
+        new, _ = sgmcmc.sgld_cv_step(
+            self.generator, self.parameters, self.observations, grad_fn,
+            centre, c_grad, epsilon, self.T)
+        self.parameters = self.model.project_parameters(new)
+        return self.parameters
+
+    def _adagrad_state_for(self, params) -> sgmcmc.AdagradState:
+        """The held ADAGRAD state if it matches ``params``' chains, else a
+        fresh one."""
+        st = self._adagrad_state
+        if st is None or st.t.shape[0] != params.num_chains:
+            st = sgmcmc.adagrad_init(params)
+        return st
+
+    def step_adagrad(self, epsilon, **kwargs):
+        grad_fn = self._grad_fn(**kwargs)
+        new, self._adagrad_state, _ = sgmcmc.adagrad_step(
+            self.generator, self.parameters,
+            self._adagrad_state_for(self.parameters), self.observations,
+            grad_fn, epsilon)
+        self.parameters = self.model.project_parameters(new)
+        return self.parameters
+
+    def project_parameters(self, **kwargs):
+        self.parameters = self.model.project_parameters(self.parameters,
+                                                        **kwargs)
+        return self.parameters
+
+    # -- fit ---------------------------------------------------------------
+    def get_iter_step(self, iter_type: str):
+        """iter_type -> bound step method; ``"custom"`` takes
+        ``iter_funcs=[(method_name, kwargs), ...]`` per iteration."""
+        if iter_type == "custom":
+            def custom_step(epsilon=None, iter_funcs=(), **_):
+                for name, fkw in iter_funcs:
+                    getattr(self, name)(**fkw)
+                return self.parameters
+
+            return custom_step
+        table = {"SGLD": self.sample_sgld, "SGRLD": self.sample_sgrld,
+                 "SGD": self.step_sgd, "SGRD": self.step_precondition_sgd,
+                 "ADAGRAD": self.step_adagrad}
+        if iter_type not in table:
+            raise ValueError(f"Unrecognized iter_type '{iter_type}'")
+        return table[iter_type]
+
+    def fit(self, iter_type: str, num_iters: int, epsilon: float = 0.1,
+            output_all: bool = False, steps_per_iteration: int = 1,
+            tqdm=None, **kwargs):
+        """Python-loop fit, one step method call at a time; returns the
+        final parameters, or with ``output_all`` the list of parameters
+        (the initial ones first)."""
+        step = self.get_iter_step(iter_type)
+        params_list = [self.parameters] if output_all else None
+        it = range(num_iters) if tqdm is None else tqdm(range(num_iters))
+        for _ in it:
+            for _ in range(steps_per_iteration):
+                step(epsilon, **kwargs)
+            if output_all:
+                params_list.append(self.parameters)
+        return params_list if output_all else self.parameters
+
+    def _trace_entries(self, trace) -> list:
+        """``fit_scan(num_chains=None)``'s trace as a list of parameters
+        shaped as the sampler holds them."""
+        stacked = self._num_chains is not None
+        return unstack_trace(params_map(
+            lambda x: x.transpose(0, 1) if stacked else x[:, None], trace))
+
+    def fit_timed(self, iter_type: str, max_time: float,
+                  epsilon: float = 0.1, steps_per_iteration: int = 1,
+                  max_samples: int = 2000, chunk_iters: int | None = None,
+                  **kwargs):
+        """Wall-clock-budgeted fit: ``(parameters list, times)``, thinned
+        (every stride-th iterate, the stride doubling) to at most about
+        ``2 * max_samples`` entries.  ``chunk_iters`` runs ``fit_scan``
+        chunks of that many iterations between clock checks (the chunk's
+        times interpolated) instead of one step call at a time."""
+        params_list, times = [self.parameters], [0.0]
+        stride, it = 1, 0
+        start = time.perf_counter()
+        step = None if chunk_iters is not None else \
+            self.get_iter_step(iter_type)
+        while time.perf_counter() - start < max_time:
+            prev = times[-1]
+            if chunk_iters is not None:
+                chunk = self._trace_entries(self.fit_scan(
+                    iter_type, num_iters=chunk_iters, epsilon=epsilon,
+                    steps_per_iteration=steps_per_iteration, **kwargs))
+            else:
+                for _ in range(steps_per_iteration):
+                    step(epsilon, **kwargs)
+                chunk = [self.parameters]
+            now = time.perf_counter() - start
+            for i, p in enumerate(chunk):
+                it += 1
+                if it % stride:
+                    continue
+                params_list.append(p)
+                times.append(prev + (now - prev) * (i + 1) / len(chunk))
+                if max_samples and len(params_list) > 2 * max_samples:
+                    params_list, times = params_list[::2], times[::2]
+                    stride *= 2
+        return params_list, times
+
     # -- multi-chain plumbing ----------------------------------------------
+    def prior_chain_draws(self, num_chains: int, first=None):
+        """Stacked ``[C, ...]`` parameters with chain 0 at ``first``
+        (default: the sampler's one chain) and chains 1..C-1 independent
+        projected prior draws; the sampler's parameters do not change."""
+        C = int(num_chains)
+        if first is None:
+            if self._num_chains is not None:
+                raise ValueError(
+                    "sampler holds stacked chains; pass `first` "
+                    "explicitly (e.g. select_chain() output)")
+            first = self.parameters
+        first = first.to(self.device)
+        if C == 1:
+            return first
+        m = self.model
+        draws = m.project_parameters(m.sample_prior(self.prior,
+                                                    self.generator, C - 1))
+        return params_map(lambda f, d: torch.cat([f, d.to(f.dtype)], 0),
+                          first, draws)
+
+    def select_chain(self, i: int = 0):
+        """Collapse a stacked multi-chain state (and the ADAGRAD state) to
+        chain ``i``."""
+        if self._num_chains is None:
+            return self.parameters
+        self.parameters = params_map(lambda x: x[i:i + 1], self.parameters)
+        st = self._adagrad_state
+        if st is not None and st.t.shape[0] == self._num_chains:
+            self._adagrad_state = sgmcmc.AdagradState(
+                G=params_map(lambda x: x[i:i + 1], st.G), t=st.t[i:i + 1])
+        self._num_chains = None
+        return self.parameters
+
     def _chain_init_params(self, num_chains: int, chain_init):
         """Initial [C, ...] parameters: a stacked parameter object (used
         as-is), ``"prior"`` (C independent prior draws) or ``"replicate"``
@@ -228,12 +483,17 @@ class Sampler:
         self.parameters = params
         return self.parameters
 
-    @staticmethod
-    def _record_plan(num_iters: int, steps_per_iteration: int, record):
+    # a recorded trace beyond this size warns (record=k or "none" thin it)
+    TRACE_WARN_BYTES = 2 << 30
+
+    def _record_plan(self, num_iters: int, steps_per_iteration: int, record,
+                     num_chains: int | None = None):
         """(recorded iterations, steps per recorded iteration, output_all).
 
         A ``record`` interval that does not divide ``num_iters`` truncates
-        the run to the largest multiple, with a warning."""
+        the run to the largest multiple, with a warning; a trace larger
+        than ``TRACE_WARN_BYTES`` over the chains that run (``num_chains``,
+        else the chains the sampler holds) warns too."""
         if record == "none":
             return num_iters, steps_per_iteration, False
         thin = 1 if record == "all" else int(record)
@@ -247,45 +507,133 @@ class Sampler:
             warnings.warn(
                 f"record={record!r} does not divide num_iters={num_iters}; "
                 f"running {n_rec * thin} iterations", stacklevel=3)
+        held = self.parameters.num_chains
+        per_iter = sum(x.numel() * x.element_size()
+                       for x in _leaves(self.parameters)) // held
+        C = held if num_chains is None else int(num_chains)
+        total = per_iter * n_rec * C
+        if total > self.TRACE_WARN_BYTES:
+            warnings.warn(
+                f"recorded trace would be ~{total / 2 ** 30:.1f} GiB ({C} "
+                f"chains x {n_rec} recorded iters); thin with record=k or "
+                f"pass record='none'", stacklevel=3)
         return n_rec, steps_per_iteration * thin, True
 
     def fit_scan(self, iter_type: str, num_iters: int, epsilon: float = 0.1,
                  steps_per_iteration: int = 1, num_chains: int | None = None,
                  chain_init="replicate", record="all",
                  return_aux: bool = False, **kwargs):
-        """Run an SGLD fit and return the parameter trace.
+        """Run a fit of ``iter_type`` (SGLD, SGRLD, SGD, SGRD, ADAGRAD or
+        SGLD-CV) and return the parameter trace.
 
         ``num_chains=C`` runs C independent chains batched in every kernel;
         the trace has a leading chain axis ``[C, iters, ...]`` and the
         sampler then holds the stacked ``[C, ...]`` parameters.  Without
-        ``num_chains`` the sampler's single chain runs and the trace is
-        ``[iters, ...]``.  ``record`` is ``"all"``, an int k (keep every
-        k-th iterate) or ``"none"`` (trace None).  ``return_aux=True`` also
-        returns the per-iteration log-likelihoods ``[C, iters]``.
+        ``num_chains`` the sampler's chains run: one chain gives an
+        ``[iters, ...]`` trace, held stacked chains continue.  ``record``
+        is ``"all"``, an int k (keep every k-th iterate) or ``"none"``
+        (trace None).  ``return_aux=True`` also returns the per-iteration
+        log-likelihoods ``[C, iters]``.  ADAGRAD carries its state across
+        calls; SGLD-CV takes ``centering_parameters`` (one chain or C) and
+        ``centering_gradient``.
         """
-        if iter_type != "SGLD":
+        if iter_type not in FIT_SCAN_TYPES:
             raise NotImplementedError(
-                f"fit_scan supports SGLD so far, not '{iter_type}'")
+                f"fit_scan supports {'/'.join(FIT_SCAN_TYPES)}, not "
+                f"'{iter_type}'")
         m, T = self.model, self.T
+        if iter_type == "SGLD-CV":
+            c_params = kwargs.pop("centering_parameters")
+            c_grad = kwargs.pop("centering_gradient")
         n_rec, steps, output_all = self._record_plan(
-            num_iters, steps_per_iteration, record)
-        grad_fn = self._grad_fn(**kwargs)
-
-        def step(gen, params, obs):
-            return sgmcmc.sgld_step(gen, params, obs, grad_fn, epsilon, T)
-
+            num_iters, steps_per_iteration, record, num_chains)
+        if iter_type in _STEP_OF:
+            step = self._step(_STEP_OF[iter_type], epsilon, **kwargs)
+        else:
+            grad_fn = self._grad_fn(**kwargs)
+        squeeze = num_chains is None and self._num_chains is None
         params0 = (self.parameters if num_chains is None else
                    self._chain_init_params(int(num_chains), chain_init))
-        params, trace, aux = sgmcmc.fit(
-            self.generator, params0, self.observations, step, n_rec,
-            project_fn=m.project_parameters, steps_per_iter=steps,
-            output_all=output_all)
+        if iter_type == "ADAGRAD":
+            def state_step(gen, p, st, obs):
+                return sgmcmc.adagrad_step(gen, p, st, obs, grad_fn, epsilon)
+
+            params, self._adagrad_state, trace, aux = sgmcmc.fit_with_state(
+                self.generator, params0, self._adagrad_state_for(params0),
+                self.observations, state_step, n_rec,
+                project_fn=m.project_parameters, steps_per_iter=steps,
+                output_all=output_all)
+        else:
+            if iter_type == "SGLD-CV":
+                centre, c_grad = self._centre(c_params, c_grad,
+                                              params0.num_chains)
+
+                def step(gen, p, obs):
+                    return sgmcmc.sgld_cv_step(gen, p, obs, grad_fn, centre,
+                                               c_grad, epsilon, T)
+
+            params, trace, aux = sgmcmc.fit(
+                self.generator, params0, self.observations, step, n_rec,
+                project_fn=m.project_parameters, steps_per_iter=steps,
+                output_all=output_all)
         self.parameters = params
-        if num_chains is None:
+        if squeeze:
             aux = aux[0]
             if trace is not None:
                 trace = params_map(lambda x: x[0], trace)
         return (trace, aux) if return_aux else trace
+
+    def fit_scan_chunked(self, iter_type: str, num_iters: int,
+                         chunk_iters: int = 250, epsilon: float = 0.1,
+                         num_chains: int | None = None,
+                         chain_init="replicate", record="all", **kwargs):
+        """``fit_scan`` in chunks of ``chunk_iters`` iterations, the
+        generator threading through the chunks, so the chains are those of
+        one long ``fit_scan``.  Returns the trace on the host: a list of
+        parameters for the sampler's chain, or with ``num_chains=C`` one
+        set of parameters with ``[C, num_recorded, ...]`` leaves.  Chunks
+        are multiples of the ``record`` interval; a final remainder below
+        it is dropped with a warning."""
+        thin = 1 if record in ("all", "none") else int(record)
+        if thin < 1:
+            raise ValueError(f"record={record!r} must be >= 1")
+        if thin > min(chunk_iters, num_iters):
+            raise ValueError(
+                f"record={record!r} exceeds chunk_iters={chunk_iters} / "
+                f"num_iters={num_iters}: nothing would be recorded")
+        if num_chains is None and record == "none":
+            raise ValueError("fit_scan_chunked exists to return the trace; "
+                             "use fit_scan(record='none') directly")
+
+        def next_chunk(done):
+            n = (min(chunk_iters, num_iters - done) // thin) * thin
+            if n == 0 and num_iters - done > 0:
+                warnings.warn(
+                    f"fit_scan_chunked: dropping the final "
+                    f"{num_iters - done} iterations (< record={record!r})",
+                    stacklevel=3)
+            return n
+
+        chunks, done = [], 0
+        while (n := next_chunk(done)) > 0:
+            if num_chains is None:
+                trace = self.fit_scan(iter_type, num_iters=n,
+                                      epsilon=epsilon, record=record,
+                                      **kwargs)
+                chunks.extend(self._trace_entries(_to_cpu(trace)))
+            else:
+                trace = self.fit_scan(iter_type, num_iters=n,
+                                      epsilon=epsilon, num_chains=num_chains,
+                                      chain_init=chain_init, record=record,
+                                      **kwargs)
+                chain_init = "replicate"    # continue the stacked chains
+                chunks.append(_to_cpu(trace))
+            done += n
+        if num_chains is None:
+            return chunks
+        if record == "none":
+            return None
+        return params_map(lambda *xs: torch.cat(xs, 1), *chunks)
 
 
 class SVMSampler(Sampler):
@@ -318,6 +666,17 @@ class GibbsSamplerMixin:
         self.parameters = m.project_parameters(m.gibbs_step(
             self.generator, self.prior, self.parameters, self.observations))
         return self.parameters
+
+    def get_iter_step(self, iter_type: str):
+        """``"Gibbs"``: one sweep, then the projection; else the
+        sampler's steppers."""
+        if iter_type == "Gibbs":
+            def step(*_, **__):
+                self.sample_gibbs()
+                return self.project_parameters()
+
+            return step
+        return super().get_iter_step(iter_type)
 
 
 class LGSSMSampler(GibbsSamplerMixin, Sampler):

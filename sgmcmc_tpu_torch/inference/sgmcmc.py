@@ -1,12 +1,13 @@
-"""Buffered-PF and exact-message scores, noisy gradient, SGLD step and fit
-loop.
+"""Buffered-PF and exact-message scores, noisy gradient, steppers and fit
+loops.
 
-Counterpart of the SGLD part of ``sgmcmc_tpu/inference/sgmcmc.py``, with
-the multi-sequence scores (``make_seq_pf_score_fn``,
-``make_seq_marginal_score_fn``) and the exact-message score
-(``make_marginal_score_fn``).  All functions act on C chains at once
-(parameters with a leading chain axis) and draw from an explicit
-``torch.Generator``; the iteration loop is host Python.
+Counterpart of ``sgmcmc_tpu/inference/sgmcmc.py``: the scores (with the
+multi-sequence ``make_seq_pf_score_fn`` / ``make_seq_marginal_score_fn``
+and the exact-message ``make_marginal_score_fn``), the SGLD, SGRLD,
+SGLD-CV, SGD and ADAGRAD steps, the preconditioner protocol and the fit
+loops.  All functions act on C chains at once (parameters with a leading
+chain axis) and draw from an explicit ``torch.Generator``; the iteration
+loop is host Python.
 
 The route rule of the particle-filter score: for CUDA tensors it runs the
 whole window in the fused CUDA kernel when the smoother is
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -40,6 +41,7 @@ from ..ops.subsequence import (buffered_window, sample_start,
                                subsequence_weights, window_length)
 
 RNG_MODES = ("host", "kernel")
+PARIS_SMOOTHERS = ("paris", "paris_ar")
 # The JAX package's resample modes under which the fused kernel may run;
 # an explicit other mode ("gather", "xla", ...) takes the unfused route.
 FUSED_RESAMPLE_MODES = ("auto", "pallas", "pallas2", "fused")
@@ -52,7 +54,7 @@ class PFScoreConfig:
     subsequence_length: int = -1        # -1: full sequence
     buffer_length: int = 0
     minibatch_size: int = 1
-    # nemeth | poyiadjis_N | poyiadjis_N2 | filter
+    # nemeth | poyiadjis_N | poyiadjis_N2 | paris | paris_ar | filter
     smoother: str = "poyiadjis_N"
     resampler: str = "multinomial"      # multinomial|systematic|stratified
     # the JAX package's mode names: all select identically (one kernel);
@@ -60,12 +62,14 @@ class PFScoreConfig:
     # the score off the fused kernel (the samplers pass "auto")
     resample_mode: str = "gather"
     lambduh: float = 0.95
+    # PaRIS's backward draws per particle
+    n_tilde: int = 2
     partition_style: str = "uniform"
     # ESS-adaptive resampling: resample only when ESS < ess_threshold * N.
     # None resamples every step.
     ess_threshold: float | None = None
-    # row-block size of the poyiadjis_N2 backward weights (None: dense up
-    # to N=8192)
+    # row-block size of the poyiadjis_N2 / PaRIS backward weights (None:
+    # dense up to N=8192)
     bw_chunk: int | None = None
     # 'kernel' generates the fused window's normals on the card from one
     # Philox seed per chain row (the proposal normals inside the kernel,
@@ -102,6 +106,8 @@ class WindowDraws(NamedTuple):
     seeds: torch.Tensor | None = None
     # [R] int64 sequence that each row reads (the multi-sequence score)
     seq: torch.Tensor | None = None
+    # PaRIS's backward uniforms [R, W, N, n_tilde]
+    v: torch.Tensor | None = None
 
 
 class PFScore(nn.Module):
@@ -177,7 +183,10 @@ class PFScore(nn.Module):
                                   device=device)
         u_shape = (R, W) if cfg.resampler == "systematic" else (R, W, N)
         u = torch.rand(u_shape, generator=generator, device=device)
-        return WindowDraws(start, z0, normals, u, seeds, seq)
+        v = (torch.rand((R, W, N, cfg.n_tilde), generator=generator,
+                        device=device)
+             if cfg.smoother in PARIS_SMOOTHERS else None)
+        return WindowDraws(start, z0, normals, u, seeds, seq, v)
 
     def _layout(self, draws: WindowDraws, observations: torch.Tensor):
         """(windows [R, W, m], step weights [R, W], in-window [R, W],
@@ -229,8 +238,9 @@ class PFScore(nn.Module):
                 step_weights=step_w, in_window=in_win, prior_mean=pm,
                 prior_var=pv, resampler=cfg.resampler,
                 resample_mode=cfg.resample_mode, lambduh=cfg.lambduh,
-                ess_threshold=cfg.ess_threshold, bw_chunk=cfg.bw_chunk,
-                step_valid=valid)
+                n_tilde=cfg.n_tilde, ess_threshold=cfg.ess_threshold,
+                bw_chunk=cfg.bw_chunk, step_valid=valid, v=draws.v,
+                generator=generator)
             stat, ll = out.mean_statistic, out.loglikelihood
         stat, ll = self._combine(stat.reshape(C, M, -1), ll.reshape(C, M),
                                  draws)
@@ -565,17 +575,54 @@ def make_seq_marginal_score_fn(windowed_fn, config: PFScoreConfig, lengths,
 
 
 def make_noisy_grad_fn(score_fn, grad_logprior_fn, T: int,
-                       is_scaled: bool = True):
-    """grad = (grad loglike estimate + grad logprior) / T."""
+                       is_scaled: bool = True, preconditioner=None):
+    """grad = (grad loglike estimate + grad logprior) / T, preconditioned
+    by ``preconditioner.precondition`` when given.  The function carries
+    the score's ``draw``, so a stepper can evaluate two gradients on one
+    set of draws."""
     scale = (1.0 / T) if is_scaled else 1.0
 
     def noisy_grad(generator, params, observations, draws=None):
         grad_ll, loglik = score_fn(generator, params, observations, draws)
-        grad = params_map(lambda g, p: (g + p) * scale, grad_ll,
+        grad = params_map(lambda g, p: g + p, grad_ll,
                           grad_logprior_fn(params))
-        return grad, loglik
+        if preconditioner is not None:
+            grad = preconditioner.precondition(params, grad)
+        return params_map(lambda g: g * scale, grad), loglik
 
+    noisy_grad.draw = getattr(score_fn, "draw", None)
     return noisy_grad
+
+
+@dataclasses.dataclass(frozen=True)
+class Preconditioner:
+    """Riemannian preconditioner D(theta) as three functions of C chains:
+    ``precondition(params, grad)`` (D grad), ``precondition_noise(params,
+    z)`` (sqrt(D) z for standard normals ``z`` shaped like the parameters)
+    and ``correction_term(params)`` (Gamma(theta))."""
+    precondition: Callable
+    precondition_noise: Callable
+    correction_term: Callable
+
+
+def _normals_like(generator, params):
+    return params_map(lambda x: torch.randn(
+        x.shape, generator=generator, dtype=x.dtype, device=x.device),
+        params)
+
+
+def _langevin(params, grad, noise, epsilon, scale):
+    """theta + eps * grad + sqrt(2 eps) * sqrt(scale) * noise."""
+    std, sq = math.sqrt(scale), math.sqrt(2.0 * epsilon)
+    return params_map(lambda p, g, n: p + epsilon * g + sq * (std * n),
+                      params, grad, noise)
+
+
+def sgd_step(generator, params, observations, noisy_grad_fn, epsilon,
+             draws=None):
+    """theta += eps * grad."""
+    grad, loglik = noisy_grad_fn(generator, params, observations, draws)
+    return params_map(lambda p, g: epsilon * g + p, params, grad), loglik
 
 
 def sgld_step(generator, params, observations, noisy_grad_fn, epsilon, T,
@@ -585,15 +632,74 @@ def sgld_step(generator, params, observations, noisy_grad_fn, epsilon, T,
     ``draws`` (the score's) and ``noise`` (standard normals shaped like
     ``params``) replace the generator's draws."""
     grad, loglik = noisy_grad_fn(generator, params, observations, draws)
+    if noise is None:
+        noise = _normals_like(generator, params)
+    return (_langevin(params, grad, noise, epsilon,
+                      (1.0 / T) if is_scaled else 1.0), loglik)
+
+
+def sgrld_step(generator, params, observations, noisy_grad_fn,
+               preconditioner: Preconditioner, epsilon, T,
+               is_scaled: bool = True, draws=None, noise=None):
+    """Riemannian SGLD: theta += eps * (grad + Gamma / T) + sqrt(2 eps)
+    sqrt(D) N(0, 1/T).  ``noisy_grad_fn`` must already apply
+    ``preconditioner.precondition``; ``noise`` (standard normals shaped
+    like ``params``) replaces the generator's."""
+    grad, loglik = noisy_grad_fn(generator, params, observations, draws)
     scale = (1.0 / T) if is_scaled else 1.0
     if noise is None:
-        noise = params_map(lambda x: torch.randn(
-            x.shape, generator=generator, dtype=x.dtype, device=x.device),
-            params)
-    std, sq = math.sqrt(scale), math.sqrt(2.0 * epsilon)
-    new = params_map(lambda p, g, n: p + epsilon * g + sq * (std * n),
-                     params, grad, noise)
-    return new, loglik
+        noise = _normals_like(generator, params)
+    noise = preconditioner.precondition_noise(params, noise)
+    corr = preconditioner.correction_term(params)
+    grad = params_map(lambda g, c: g + scale * c, grad, corr)
+    return _langevin(params, grad, noise, epsilon, scale), loglik
+
+
+class AdagradState(NamedTuple):
+    G: object                 # accumulated squared gradients (parameters)
+    t: torch.Tensor           # [C] int64 steps taken
+
+
+ADAGRAD_NUGGET = 1e-9
+
+
+def adagrad_init(params) -> AdagradState:
+    G = params_map(torch.zeros_like, params)
+    device = getattr(G, dataclasses.fields(G)[0].name).device
+    return AdagradState(G=G, t=torch.zeros((params.num_chains,),
+                                           dtype=torch.int64, device=device))
+
+
+def adagrad_step(generator, params, state: AdagradState, observations,
+                 noisy_grad_fn, epsilon, draws=None):
+    """ADAGRAD: G += grad^2, theta += eps * grad / sqrt(G + nugget)."""
+    grad, loglik = noisy_grad_fn(generator, params, observations, draws)
+    G = params_map(lambda Gi, g: Gi + g * g, state.G, grad)
+    new = params_map(
+        lambda p, g, Gi: p + epsilon * g / torch.sqrt(Gi + ADAGRAD_NUGGET),
+        params, grad, G)
+    return new, AdagradState(G=G, t=state.t + 1), loglik
+
+
+def sgld_cv_step(generator, params, observations, noisy_grad_fn,
+                 centering_params, centering_grad, epsilon, T,
+                 is_scaled: bool = True, draws=None, noise=None):
+    """SGLD with control variates: grad = centering_grad + (grad(theta) -
+    grad(centre)), both noisy gradients on one and the same draws (the
+    score's ``draw`` unless ``draws`` is given), so the two cancel where
+    theta is the centre."""
+    if draws is None:
+        draws = noisy_grad_fn.draw(generator, params.num_chains,
+                                   observations.device)
+    grad_cur, loglik = noisy_grad_fn(generator, params, observations, draws)
+    grad_cen, _ = noisy_grad_fn(generator, centering_params, observations,
+                                draws)
+    delta = params_map(lambda full, c, cc: full + (c - cc), centering_grad,
+                       grad_cur, grad_cen)
+    if noise is None:
+        noise = _normals_like(generator, params)
+    return (_langevin(params, delta, noise, epsilon,
+                      (1.0 / T) if is_scaled else 1.0), loglik)
 
 
 def fit(generator, params, observations, step_fn, num_iters: int,
@@ -606,10 +712,27 @@ def fit(generator, params, observations, step_fn, num_iters: int,
     after each iteration along axis 1 (``[C, num_iters, ...]``; None
     without ``output_all``), aux the last step's loglik ``[C, num_iters]``.
     """
+    def state_step(gen, p, state, obs):
+        p, ll = step_fn(gen, p, obs)
+        return p, state, ll
+
+    params, _, trace, aux = fit_with_state(
+        generator, params, None, observations, state_step, num_iters,
+        project_fn, steps_per_iter, output_all)
+    return params, trace, aux
+
+
+def fit_with_state(generator, params, state, observations, step_fn,
+                   num_iters: int, project_fn=None, steps_per_iter: int = 1,
+                   output_all: bool = True):
+    """:func:`fit` for steppers that carry optimiser state (ADAGRAD):
+    ``step_fn(generator, params, state, observations) -> (params, state,
+    loglik)``.  Returns ``(params, state, trace, aux)``."""
     trace, aux = [], []
     for _ in range(num_iters):
         for _ in range(steps_per_iter):
-            params, ll = step_fn(generator, params, observations)
+            params, state, ll = step_fn(generator, params, state,
+                                        observations)
             if project_fn is not None:
                 params = project_fn(params)
         if output_all:
@@ -617,4 +740,4 @@ def fit(generator, params, observations, step_fn, num_iters: int,
         aux.append(ll)
     stacked = (params_map(lambda *xs: torch.stack(xs, 1), *trace)
                if output_all else None)
-    return params, stacked, torch.stack(aux, 1)
+    return params, state, stacked, torch.stack(aux, 1)

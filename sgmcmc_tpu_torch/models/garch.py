@@ -232,6 +232,15 @@ def unpack_grad(stat: torch.Tensor) -> GARCHParams:
                        logit_lambduh=stat[:, 3:4], LRinv_vec=stat[:, 0:1])
 
 
+SUFF_STATISTIC_DIM = 3  # [x', x'^2, x'^4]
+
+
+def suff_statistic(params: GARCHParams, x_t, x_next, y_next, t):
+    """Sufficient statistics (x', x'^2, x'^4) per particle, [C, N, 3]."""
+    x1 = x_next[..., 0]
+    return torch.stack([x1, x1 * x1, x1 ** 4], -1)
+
+
 # --------------------------------------------------------------------------
 # Fused-window bodies.  Same operation order as csrc/garch_body.cuh (and as
 # the JAX package's garch._fused_*): built without FMA contraction, the

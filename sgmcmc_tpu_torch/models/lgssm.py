@@ -12,8 +12,9 @@ statistics, the prior, its partial-prior gradient and the projection, the
 fused-window bodies (plain PyTorch here, CUDA in
 ``csrc/lgssm_body.cuh``), the exact Kalman oracle in float64 through
 ``ops/kalman.py``, the windowed marginal and complete-data gradients, the
-latent draws and moments, and the conjugate Gibbs updates.  The vector
-model, the preconditioner and the predict surface are not ported yet.
+latent draws and moments, the conjugate Gibbs updates and the SGRLD
+preconditioner.  The vector model and the predict surface are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -558,6 +559,39 @@ def get_fused(name: str | None = None):
     if name == "prior":
         return FUSED_PRIOR
     raise ValueError(f"Unrecognized LGSSM kernel '{name}'")
+
+
+# --------------------------------------------------------------------------
+# SGRLD preconditioner at n = m = 1: D(theta) in the JAX package's
+# coordinates (its precondition, precondition_noise and correction_term)
+# --------------------------------------------------------------------------
+
+def precondition(params: LGSSMParams, grad: LGSSMParams) -> LGSSMParams:
+    """D(theta) grad: (Q gA, R gC, Qinv gLQ / 2, Rinv gLR / 2)."""
+    qinv, rinv = params.qinv[:, None], params.rinv[:, None]
+    return LGSSMParams(A=params.Q[:, None, None] * grad.A,
+                       C=params.R[:, None, None] * grad.C,
+                       LQinv_vec=0.5 * qinv * grad.LQinv_vec,
+                       LRinv_vec=0.5 * rinv * grad.LRinv_vec)
+
+
+def precondition_noise(params: LGSSMParams, z: LGSSMParams) -> LGSSMParams:
+    """sqrt(D(theta)) z for four standard normals ``z`` shaped like the
+    parameters: (zA / LQinv, zC / LRinv, LQinv zQ / sqrt 2,
+    LRinv zR / sqrt 2)."""
+    lqinv, lrinv = params.LQinv_vec, params.LRinv_vec
+    return LGSSMParams(A=z.A / lqinv[:, :, None], C=z.C / lrinv[:, :, None],
+                       LQinv_vec=np.sqrt(0.5) * lqinv * z.LQinv_vec,
+                       LRinv_vec=np.sqrt(0.5) * lrinv * z.LRinv_vec)
+
+
+def correction_term(params: LGSSMParams) -> LGSSMParams:
+    """Gamma(theta): 0 for A and C, (n + 1) / 2 L for the Cholesky
+    factors (n = m = 1)."""
+    return LGSSMParams(A=torch.zeros_like(params.A),
+                       C=torch.zeros_like(params.C),
+                       LQinv_vec=0.5 * (1 + 1) * params.LQinv_vec,
+                       LRinv_vec=0.5 * (1 + 1) * params.LRinv_vec)
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Uniform model adapter (counterpart of ``sgmcmc_tpu/models/registry.py``,
-with the fields buffered-PF SGLD, the exact-message scores and Gibbs read,
-and the SVM, scalar LGSSM, GARCH and SVJM entries)."""
+with the fields the particle and exact-message scores, the steppers and
+Gibbs read, and the SVM, scalar LGSSM, GARCH and SVJM entries)."""
 from __future__ import annotations
 
 import dataclasses
@@ -29,9 +29,13 @@ class ModelAPI:
     generate_data: Callable      # (generator, params, T) -> (ys, xs)
     prior_mean_var: Callable     # params -> (prior_mean [C], prior_var [C])
     get_fused: Callable | None = None   # kernel_name -> FusedModel | None
-    # the particle filter's log-likelihood statistic (None: not ported)
+    # the particle filter's log-likelihood statistic
     suff_statistic: Callable | None = None
     suff_statistic_dim: int = 0
+    # the SGRLD preconditioner triple (LGSSM; None: SGRLD / SGRD raise)
+    precondition: Callable | None = None
+    precondition_noise: Callable | None = None
+    correction_term: Callable | None = None
     # the exact-message oracle and scores and Gibbs (LGSSM)
     marginal_loglikelihood: Callable | None = None
     gradient_marginal_loglikelihood: Callable | None = None
@@ -49,7 +53,8 @@ def _api(name: str, mod, prior_mean_var, **extra) -> ModelAPI:
         grad_logprior=mod.grad_logprior, sample_prior=mod.sample_prior,
         project_parameters=mod.project_parameters,
         generate_data=mod.generate_data, prior_mean_var=prior_mean_var,
-        get_fused=mod.get_fused, **extra)
+        get_fused=mod.get_fused, suff_statistic=mod.suff_statistic,
+        suff_statistic_dim=mod.SUFF_STATISTIC_DIM, **extra)
 
 
 def _stationary_prior(mod):
@@ -64,8 +69,9 @@ SVM = _api("svm", svm_mod, _stationary_prior(svm_mod))
 # the JAX package's (0, 10 I) initial-state prior, per chain
 LGSSM = _api("lgssm_1_1", lgssm_mod,
              lambda p: (torch.zeros_like(p.a), torch.full_like(p.a, 10.0)),
-             suff_statistic=lgssm_mod.suff_statistic,
-             suff_statistic_dim=lgssm_mod.SUFF_STATISTIC_DIM,
+             precondition=lgssm_mod.precondition,
+             precondition_noise=lgssm_mod.precondition_noise,
+             correction_term=lgssm_mod.correction_term,
              marginal_loglikelihood=lgssm_mod.marginal_loglikelihood,
              gradient_marginal_loglikelihood=(
                  lgssm_mod.gradient_marginal_loglikelihood),

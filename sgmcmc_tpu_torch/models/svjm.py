@@ -252,6 +252,16 @@ def unpack_grad(stat: torch.Tensor) -> SVJMParams:
                       LQJinv_vec=stat[:, 4:5])
 
 
+SUFF_STATISTIC_DIM = 3  # [x', x'^2, x x']
+
+
+def suff_statistic(params: SVJMParams, x_t, x_next, y_next, t):
+    """Gaussian sufficient statistics (x', x'^2, x x') per particle, [C, N,
+    3] (diagnostics and the particle filter's log-likelihood statistic)."""
+    x0, x1 = x_t[..., 0], x_next[..., 0]
+    return torch.stack([x1, x1 * x1, x0 * x1], -1)
+
+
 # --------------------------------------------------------------------------
 # Fused-window body (bootstrap proposal).  Same operation order as
 # csrc/svjm_body.cuh (and as the JAX package's svjm._fused_*): built

@@ -181,6 +181,16 @@ def unpack_grad(stat: torch.Tensor) -> SVMParams:
                      LQinv_vec=stat[:, 1:2], LRinv_vec=stat[:, 0:1])
 
 
+SUFF_STATISTIC_DIM = 3  # [x', x'^2, x x']
+
+
+def suff_statistic(params: SVMParams, x_t, x_next, y_next, t):
+    """Gaussian sufficient statistics (x', x'^2, x x') per particle, [C, N,
+    3] (the particle filter's log-likelihood statistic)."""
+    x0, x1 = x_t[..., 0], x_next[..., 0]
+    return torch.stack([x1, x1 * x1, x0 * x1], -1)
+
+
 # --------------------------------------------------------------------------
 # Fused-window body.  Same operation order as csrc/svm_body.cuh: built
 # without FMA contraction, the kernel then rounds exactly as these

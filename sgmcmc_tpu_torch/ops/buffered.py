@@ -7,7 +7,8 @@ the fused kernel (``ops/cuda/fused_pf.py``) computes the same window in
 one launch.  Randomness is an input, in the fused kernel's layout:
 ``z0 [C, Z, N]``, ``normals [C, W, Z, N]`` and the resampling uniforms
 ``u``, ``[C, W]`` for systematic and ``[C, W, N]`` for multinomial and
-stratified resampling.
+stratified resampling, and PaRIS's backward uniforms ``v [C, W, N,
+n_tilde]`` (or its backward indices ``J`` of that shape).
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ def run_buffered_pf(
         resampler: str = "multinomial",
         resample_mode: str = "auto",
         lambduh: float = 0.95,
+        n_tilde: int = 2,
         logsumexp_mode: bool = False,
         ess_threshold: float | None = None,
         bw_chunk: int | None = None,
@@ -62,6 +64,9 @@ def run_buffered_pf(
         save_all: bool = False,
         fixed_lag: int | None = None,
         step_valid: torch.Tensor | None = None,     # [C, W] {0., 1.}
+        v: torch.Tensor | None = None,              # [C, W, N, n_tilde]
+        J: torch.Tensor | None = None,              # [C, W, N, n_tilde]
+        generator: torch.Generator | None = None,   # paris_ar's rounds
 ) -> PFOutput:
     """Run ``W`` steps of a buffered particle smoother over each chain's
     window.  ``step_weights`` carries both the buffering (zero outside
@@ -69,7 +74,9 @@ def run_buffered_pf(
     gates the log-likelihood accumulation.  ``step_valid`` freezes the
     whole carry (running log-likelihood included) of a chain on the steps
     where it is not positive: the padded tails of multi-sequence
-    windows."""
+    windows.  PaRIS takes its backward uniforms ``v`` (or indices ``J``)
+    and, for ``paris_ar``, the ``generator`` of its accept-reject
+    rounds."""
     if elementwise or save_all or fixed_lag is not None:
         raise NotImplementedError(
             "elementwise, fixed-lag and save_all modes are not ported yet")
@@ -80,7 +87,8 @@ def run_buffered_pf(
     if in_window is None:
         in_window = (step_weights > 0).to(dtype)
     step = make_smoother_step(smoother, kernel, stat_fn, resampler,
-                              lambduh=lambduh, logsumexp_mode=logsumexp_mode,
+                              lambduh=lambduh, n_tilde=n_tilde,
+                              logsumexp_mode=logsumexp_mode,
                               resample_mode=resample_mode,
                               ess_threshold=ess_threshold, bw_chunk=bw_chunk)
     D = kernel.state_dim
@@ -97,7 +105,9 @@ def run_buffered_pf(
         new = step(params, carry, PFStepInput(
             z=normals[:, t].transpose(1, 2), u=u[:, t],
             y=observations[:, t], weight=step_weights[:, t],
-            in_window=in_window[:, t], t=t))
+            in_window=in_window[:, t], t=t,
+            v=None if v is None else v[:, t],
+            J=None if J is None else J[:, t], generator=generator))
         if step_valid is not None:
             act = step_valid[:, t] > 0
             new = PFCarry(*[torch.where(

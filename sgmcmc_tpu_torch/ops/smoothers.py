@@ -5,13 +5,24 @@ Counterpart of ``sgmcmc_tpu/ops/smoothers.py``:
 * ``nemeth``       — O(N) shrinkage smoother (``lambduh < 1``);
 * ``poyiadjis_N``  — Nemeth with ``lambduh = 1``;
 * ``poyiadjis_N2`` — O(N^2) backward-weight smoother, streamed in row
-  blocks of ``bw_chunk``.
+  blocks of ``bw_chunk``;
+* ``paris``        — PaRIS with exact backward sampling: ``n_tilde``
+  backward indices per particle drawn from the normalised backward
+  weights, streamed in the same row blocks;
+* ``paris_ar``     — PaRIS with accept-reject backward sampling and the
+  exact draw as its fallback.
 Every step resamples ``[particles | statistics]`` jointly with
-``resample_rows`` (the resample-apply kernel for CUDA tensors), applies the
-optional ESS gate, proposes and reweights.  The step consumes its
-randomness as inputs (proposal normals ``z`` and the resampling uniforms
-``u``), so the same draws can drive the JAX package.  PaRIS is not ported
-yet (ROADMAP.md).
+``resample_rows`` (the resample-apply kernel for CUDA tensors; PaRIS
+resamples the particles only), applies the optional ESS gate, proposes and
+reweights.  The step consumes its randomness as inputs (proposal normals
+``z``, the resampling uniforms ``u`` and PaRIS's backward uniforms ``v``),
+so the same draws can drive the JAX package.  Two named exceptions to the
+JAX module: the backward indices are drawn by inverse CDF
+(``searchsorted(side="right")`` on each normalised row, the port's one
+selection rule) where JAX draws Gumbel-max categoricals, which agree in
+law; and ``paris_ar`` draws its accept-reject rounds from the
+``torch.Generator`` of the step input, since their number depends on the
+data.
 """
 from __future__ import annotations
 
@@ -21,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.base import ParticleKernel, StatisticFn
-from .cuda.resample import resample_rows
+from .cuda.resample import ancestors, resample_rows, weights_cdf
 from .resampling import get_resampler, normalize_log_weights
 
 
@@ -39,6 +50,12 @@ class PFStepInput(NamedTuple):
     weight: torch.Tensor        # [C] subsequence weight w_t (0 off-window)
     in_window: torch.Tensor     # [C] {0., 1.}: t in [t1, tL)
     t: int                      # step index within the window
+    # PaRIS: backward uniforms [C, N, n_tilde]; J [C, N, n_tilde] (the
+    # backward indices themselves) replaces them when given
+    v: torch.Tensor | None = None
+    J: torch.Tensor | None = None
+    # paris_ar: the generator of its accept-reject rounds
+    generator: torch.Generator | None = None
 
 
 def _ess_gate(log_weights: torch.Tensor, ess_threshold: float | None):
@@ -228,10 +245,179 @@ def make_poyiadjis_n2_step(kernel: ParticleKernel, stat_fn: StatisticFn,
     return step
 
 
+def _backward_indices(kernel: ParticleKernel, params, particles,
+                      log_weights, new_particles, v, bw_chunk):
+    """Backward indices J [C, N, K]: ``J[c, i, k]`` is the inverse CDF of
+    row i of the normalised backward weights at ``v[c, i, k]``, with the
+    rows streamed in blocks of ``bw_chunk`` (float64 CDF, rounded once, as
+    every selection of the port)."""
+    C, n = log_weights.shape
+    K = v.shape[-1]
+    rows = n // _bw_row_chunks(bw_chunk, n)
+    out = []
+    for r in range(0, n, rows):
+        x_t, x_next = _pairs(particles, new_particles[:, r:r + rows])
+        log_bw = _backward_log_weights(kernel, params, log_weights, x_t,
+                                       x_next)                  # [C, R, N]
+        cdf = weights_cdf(log_bw.reshape(-1, n))
+        out.append(ancestors(v[:, r:r + rows].reshape(-1, K), cdf)
+                   .reshape(C, -1, K))
+    return torch.cat(out, 1)
+
+
+def _rewired_statistics(stat_fn: StatisticFn, params, carry: PFCarry,
+                        new_particles, J, inp: PFStepInput):
+    """PaRIS's update ``mean_k(stats[J_ik] + scale * h(x_{J_ik}, x'_i))``
+    [C, N, H] from the previous carry and the backward indices J."""
+    C, N, K = J.shape
+    flat = J.reshape(C, N * K, 1)
+    x_J = torch.gather(carry.particles, 1,
+                       flat.expand(-1, -1, carry.particles.shape[-1]))
+    s_J = torch.gather(carry.statistics, 1,
+                       flat.expand(-1, -1, carry.statistics.shape[-1]))
+    x_next = new_particles.repeat_interleave(K, 1)             # [C, NK, D]
+    h = stat_fn(params, x_J, x_next, inp.y, inp.t)             # [C, NK, H]
+    scale = (inp.weight * inp.in_window)[:, None, None]
+    return (s_J + scale * h).reshape(C, N, K, -1).mean(2)
+
+
+def _check_n_tilde(inp: PFStepInput, n_tilde: int) -> None:
+    draws = inp.J if inp.J is not None else inp.v
+    if draws is None or draws.shape[-1] != n_tilde:
+        raise ValueError(f"PaRIS with n_tilde={n_tilde} needs backward "
+                         f"uniforms v (or indices J) [C, N, {n_tilde}]")
+
+
+def make_paris_step(kernel: ParticleKernel, stat_fn: StatisticFn,
+                    n_tilde: int = 2,
+                    resampler_name: str = "multinomial",
+                    resample_mode: str = "auto",
+                    ess_threshold: float | None = None,
+                    bw_chunk: int | None = None):
+    """PaRIS (Olsson & Westerborn) step with exact backward sampling:
+    ``n_tilde`` backward indices per particle from the normalised backward
+    weights (``inp.J`` or the inverse CDF at ``inp.v``), streamed in row
+    blocks of ``bw_chunk`` (the live memory is O(C * bw_chunk * N))."""
+    def step(params, carry: PFCarry, inp: PFStepInput) -> PFCarry:
+        _, particles, log_w, _ = _propagate_apply(
+            kernel, resampler_name, resample_mode, params, inp.u, inp.z,
+            carry.particles, carry.log_weights, None, inp.y, ess_threshold)
+        _check_n_tilde(inp, n_tilde)
+        J = inp.J
+        if J is None:
+            J = _backward_indices(kernel, params, carry.particles,
+                                  carry.log_weights, particles, inp.v,
+                                  bw_chunk)
+        stats = _rewired_statistics(stat_fn, params, carry, particles, J,
+                                    inp)
+        loglik = carry.loglik + inp.weight * inp.in_window * \
+            _loglik_increment(log_w)
+        return PFCarry(particles, log_w, stats, loglik)
+
+    return step
+
+
+# paris_ar reads whether every lane has accepted (one host synchronisation
+# on the card) once per this many rounds; the rounds in between are masked,
+# so the law does not depend on it.
+AR_CHECK_EVERY = 8
+
+
+def _default_ar_budget(n: int) -> int:
+    """The JAX package's (and the reference's) accept-reject budget."""
+    return max(int(100 * math.log10(n / 10)), 8) if n > 10 else 8
+
+
+def accept_reject_backward_indices(generator: torch.Generator,
+                                   kernel: ParticleKernel, params,
+                                   particles, log_weights, new_particles,
+                                   v, max_accept_reject: int | None = None,
+                                   bw_chunk: int | None = None):
+    """PaRIS backward indices [C, N, K] by accept-reject (K = ``v``'s last
+    axis): every (i, k) lane proposes an ancestor I by inverse CDF of the
+    weights and accepts it with probability q(x_I -> x'_i) / q_max, for at
+    most ``max_accept_reject`` masked rounds drawn from ``generator``
+    (default 100 log10(N/10), at least 8); lanes still open then take the
+    exact draw at ``v`` (:func:`make_paris_step`'s), so a budget of 0 gives
+    that step's indices.  Counts its calls, rounds and host reads in
+    ``accept_reject_backward_indices.calls`` / ``.rounds`` / ``.syncs``."""
+    C, N = log_weights.shape
+    K = v.shape[-1]
+    budget = (_default_ar_budget(N) if max_accept_reject is None
+              else max_accept_reject)
+    dev, dt = log_weights.device, log_weights.dtype
+    log_q_max = kernel.prior_log_density_max(params)[:, None]  # [C, 1]
+    cdf = weights_cdf(log_weights)
+    x_next = new_particles.repeat_interleave(K, 1)              # [C, NK, D]
+    D = particles.shape[-1]
+    accepted = torch.zeros((C, N * K), dtype=torch.bool, device=dev)
+    J = torch.zeros((C, N * K), dtype=torch.int64, device=dev)
+    rounds, done = 0, False
+    while rounds < budget and not done:
+        pos = torch.rand((C, N * K), generator=generator, dtype=dt,
+                         device=dev)
+        U = torch.rand((C, N * K), generator=generator, dtype=dt,
+                       device=dev)
+        I = ancestors(pos, cdf)
+        x_prop = torch.gather(particles, 1, I[..., None].expand(-1, -1, D))
+        log_q = kernel.prior_log_density(params, x_prop, x_next)
+        now = (U <= torch.exp(log_q - log_q_max)) & ~accepted
+        J = torch.where(now, I, J)
+        accepted = accepted | now
+        rounds += 1
+        if rounds % AR_CHECK_EVERY == 0 or rounds == budget:
+            accept_reject_backward_indices.syncs += 1
+            done = bool(accepted.all())
+    accept_reject_backward_indices.calls += 1
+    accept_reject_backward_indices.rounds += rounds
+    accepted, J = accepted.reshape(C, N, K), J.reshape(C, N, K)
+    if not done:
+        J_exact = _backward_indices(kernel, params, particles, log_weights,
+                                    new_particles, v, bw_chunk)
+        J = torch.where(accepted, J, J_exact)
+    return J
+
+
+accept_reject_backward_indices.calls = 0
+accept_reject_backward_indices.rounds = 0
+accept_reject_backward_indices.syncs = 0
+
+
+def make_paris_ar_step(kernel: ParticleKernel, stat_fn: StatisticFn,
+                       n_tilde: int = 2,
+                       resampler_name: str = "multinomial",
+                       resample_mode: str = "auto",
+                       max_accept_reject: int | None = None,
+                       ess_threshold: float | None = None,
+                       bw_chunk: int | None = None):
+    """PaRIS step with accept-reject backward sampling (O(N K) expected
+    per round), its rounds drawn from ``inp.generator`` and its exact
+    fallback at ``inp.v``."""
+    def step(params, carry: PFCarry, inp: PFStepInput) -> PFCarry:
+        if inp.generator is None:
+            raise ValueError("paris_ar draws its accept-reject rounds from "
+                             "the step input's generator, which is None")
+        _check_n_tilde(inp, n_tilde)
+        _, particles, log_w, _ = _propagate_apply(
+            kernel, resampler_name, resample_mode, params, inp.u, inp.z,
+            carry.particles, carry.log_weights, None, inp.y, ess_threshold)
+        J = accept_reject_backward_indices(
+            inp.generator, kernel, params, carry.particles,
+            carry.log_weights, particles, inp.v, max_accept_reject,
+            bw_chunk)
+        stats = _rewired_statistics(stat_fn, params, carry, particles, J,
+                                    inp)
+        loglik = carry.loglik + inp.weight * inp.in_window * \
+            _loglik_increment(log_w)
+        return PFCarry(particles, log_w, stats, loglik)
+
+    return step
+
+
 def make_smoother_step(name: str, kernel: ParticleKernel,
                        stat_fn: StatisticFn,
                        resampler_name: str = "multinomial",
-                       lambduh: float = 0.95,
+                       lambduh: float = 0.95, n_tilde: int = 2,
                        logsumexp_mode: bool = False,
                        resample_mode: str = "auto",
                        ess_threshold: float | None = None,
@@ -250,7 +436,12 @@ def make_smoother_step(name: str, kernel: ParticleKernel,
     if name == "poyiadjis_N2":
         return make_poyiadjis_n2_step(kernel, stat_fn, resampler_name,
                                       resample_mode, ess_threshold, bw_chunk)
-    if name in ("paris", "paris_ar"):
-        raise NotImplementedError(
-            f"smoother '{name}' is not ported yet (ROADMAP.md, Queue 1)")
+    if name == "paris":
+        return make_paris_step(kernel, stat_fn, n_tilde, resampler_name,
+                               resample_mode, ess_threshold, bw_chunk)
+    if name == "paris_ar":
+        return make_paris_ar_step(kernel, stat_fn, n_tilde, resampler_name,
+                                  resample_mode, max_accept_reject=None,
+                                  ess_threshold=ess_threshold,
+                                  bw_chunk=bw_chunk)
     raise ValueError(f"Unrecognized pf = '{name}'")

@@ -589,8 +589,8 @@ def test_models_without_messages_raise_jax_wording(kind, what):
                             device="cpu")
     with pytest.raises(NotImplementedError, match=what):
         s.fit_scan("SGLD", num_iters=1, kind=kind)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        s.noisy_loglikelihood(N=16)
+    # the particle filter's log-likelihood needs no messages
+    assert np.isfinite(s.noisy_loglikelihood(N=16))
     with pytest.raises(NotImplementedError, match="exact"):
         s.exact_loglikelihood()
     assert registry.SVM.gibbs_step is None

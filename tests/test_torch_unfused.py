@@ -23,7 +23,7 @@ from sgmcmc_tpu.ops import subsequence as jsub
 from sgmcmc_tpu_torch.inference import sgmcmc
 from sgmcmc_tpu_torch.inference.samplers import Sampler, SVMSampler
 from sgmcmc_tpu_torch.models import registry, svm
-from sgmcmc_tpu_torch.ops import buffered, smoothers
+from sgmcmc_tpu_torch.ops import buffered
 from sgmcmc_tpu_torch.ops.cuda import fused_pf, resample
 
 torch.set_num_threads(1)
@@ -275,9 +275,3 @@ def test_sampler_without_card_raises(monkeypatch):
         Sampler("svm", observations=np.zeros((10, 1)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SVMSampler(observations=np.zeros((10, 1)), seed=1)
-
-
-@pytest.mark.parametrize("name", ["paris", "paris_ar"])
-def test_paris_not_ported_yet(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        smoothers.make_smoother_step(name, svm.KERNEL, svm.grad_statistic)
