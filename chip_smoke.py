@@ -142,6 +142,28 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      chains bitwise equal to one ``fit_scan(num_iters=10)`` from the same
      seed; ``fit_timed(chunk_iters=50)`` for 2 s; recovery of A from 0.5
      toward 0.9 by SGRLD on the LGSSM (256 chains, 200 iterations).
+ 22. the predict surface (plain PyTorch around the resample-apply kernel,
+     which resamples each particle's elementwise statistic with it, rows
+     of K = D + T * dim floats): the kernel against its plain version,
+     bitwise, at the wide rows ``PREDICT_SHAPES`` (the SVM's smoothed
+     latent at T=1000 with N=1000 and N=10000, the Seq predict's padded
+     rows, GARCH's y), timed there (device time in a CUDA graph and one
+     host call) beside ``searchsorted`` + ``gather`` and the bound; every
+     predict call of the slice on one chain, timed, with its launches (one
+     resample-apply a step, K1 never) and peak memory: ``SVMSampler``
+     ``predict`` at T=1000, N=1000 smoothed, filtered (lag 0), fixed-lag
+     (lag 5) and ``target="y"``, at N=10000, GARCH's ``target="y"``,
+     ``predictive_loglikelihood(5)`` of the four models, ``SeqSVMSampler``
+     ``predict`` / ``predictive_loglikelihood`` on ``SEQ_LENGTHS``, the
+     LGSSM's exact predict (float64: moments, FFBS and marginal draws,
+     ``simulate_distr``, ``simulate``); the LGSSM's particle predict
+     (smoothed, filtered, fixed-lag; 32 rows of T=200, N=1000) within |z|
+     < 5 of the Kalman moments at every t; the exact predict functions on
+     the card against the CPU on shared normals (normwise relative
+     difference at most 1e-9); and the SVM's Laplace / EP and the SVJM's
+     EP / EP-avg proposals through ``fit_scan("SGLD")`` (multinomial,
+     N=1000, 8192 chains, 2 iterations: one resample-apply launch a
+     window step, no K1), with their steps/s.
 The last three lines are the kernel report (JSON), the card's
 ``nvidia-smi`` name and power limit, and the result (JSON).
 Exits non-zero without a result when no CUDA device is available.
@@ -510,6 +532,273 @@ PARIS_SIZES = dict(grid=(C_BENCH, 100, ITERS), ld=(64, 1000, 2),
                    cpu=(64, 256), T=T)
 STEPPER_SIZES = dict(C=C_BENCH, N=N, iters=ITERS, chunked=256, timed=2.0,
                      rec=(256, 200), T=T)
+
+
+# Phase 22: the predict surface.  Its resample-apply calls carry each
+# particle's elementwise statistic, rows of K = D + T * dim floats: the
+# SVM's smoothed latent at T=1000 with the experiments' eval_N (1000) and
+# the plotting default N=10000, the Seq predict's padded rows (one a
+# sequence, T_max steps) and GARCH's y (D = dim = 2).
+PREDICT_SHAPES = dict(
+    predict_svm=(1, 1000, 1 + 3 * T),
+    predict_svm_n10000=(1, 10000, 1 + 3 * T),
+    predict_seq=(len(SEQ_LENGTHS), 1000, 1 + 3 * max(SEQ_LENGTHS)),
+    predict_garch_y=(1, 1000, 2 + 2 * T))
+# z: (rows, T, N) of the LGSSM's PF-against-Kalman check; fit: (chains, N,
+# iterations) of the proposals' fits
+PREDICT_SIZES = dict(T=T, N=1000, N_big=10000, seq=SEQ_LENGTHS,
+                     z=(32, 200, 1000), fit=(C_BENCH, 1000, 2),
+                     shapes=PREDICT_SHAPES)
+
+
+def predict_phase(dev, card, sizes=PREDICT_SIZES):
+    """Phase 22 on ``dev`` (the CPU for a rehearsal at small ``sizes``):
+    resample-apply at the predict surface's wide rows, every predict call
+    of the slice timed with its launches, the LGSSM's particle predict
+    against the Kalman smoother, its exact predict on the card against the
+    CPU, and the adaptive proposals' fits.  Returns the report's
+    numbers."""
+    import numpy as np
+    from sgmcmc_tpu_torch.inference import samplers
+    from sgmcmc_tpu_torch.models import garch, lgssm, svjm, svm
+    from sgmcmc_tpu_torch.models.base import params_map
+    from sgmcmc_tpu_torch.ops.cuda import fused_pf, resample
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(22)
+    T_len, N_p = sizes["T"], sizes["N"]
+    out = {"resample_apply": {}, "launches": {}}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # (a) resample-apply at the wide rows, bitwise, then timed: host calls
+    # (CUDA events) and the device time alone (a CUDA graph of calls)
+    for label, (C, n_part, K) in sizes["shapes"].items():
+        lw = 2.0 * torch.randn((C, n_part), generator=gen, device=dev)
+        pos = torch.rand((C, n_part), generator=gen, device=dev)
+        vals = torch.randn((C, n_part, K), generator=gen, device=dev)
+        cdf = resample.weights_cdf(lw)
+        out_k = resample.resample_apply(pos, cdf, vals)
+        out_r = resample.resample_apply_reference(pos, cdf, vals)
+        sync()
+        same = bool(torch.equal(out_k, out_r))
+        row = dict(max_abs_err=float((out_k - out_r).abs().max()))
+        msg = ""
+        if cuda:
+            def kern():
+                return resample.resample_apply(pos, cdf, vals)
+
+            def plain():
+                return resample.resample_apply_reference(pos, cdf, vals)
+            reps = max(10, min(200, int(2e8 / (8 * C * n_part * K))))
+            nbytes = 4 * (pos.numel() + cdf.numel() + 2 * vals.numel())
+            bnd, by = bound_ms(nbytes, C * n_part * (n_part.bit_length() + 1))
+            # the plain version is the PyTorch call (torch.searchsorted +
+            # torch.gather): timed twice
+            row.update(ms=graph_ms(kern, reps), plain_ms=graph_ms(plain, reps),
+                       library_ms=graph_ms(plain, reps), bound_ms=bnd,
+                       bound_by=by, host_ms=cuda_ms(kern, reps),
+                       plain_host_ms=cuda_ms(plain, reps),
+                       wide=resample.is_wide(C, n_part, K, dev))
+            msg = (f"; device time per call (CUDA graph) kernel "
+                   f"{row['ms']:.4f} ms, plain (searchsorted + gather) "
+                   f"{row['plain_ms']:.4f} ms, bound {bnd:.4f} ms by {by} "
+                   f"({nbytes / 1e6:.1f} MB, {bnd / row['ms']:.0%} of it); "
+                   f"one host call {row['host_ms']:.4f} / "
+                   f"{row['plain_host_ms']:.4f} ms; wide launch "
+                   f"{row['wide']} ({card})")
+        out["resample_apply"][label] = row
+        phase("22 resample-apply", f"{label}: C={C} N={n_part} K={K}: max "
+              f"|kernel - plain| = {row['max_abs_err']!r}, bitwise equal "
+              f"{same}{msg}")
+        if not same:
+            raise AssertionError(f"resample-apply differs from its plain "
+                                 f"version at {label}")
+        del lw, pos, vals, cdf, out_k, out_r
+
+    # (b) every predict call of the slice, one chain, timed
+    def timed(label, call, expect_ra, shape=None, key=None):
+        """One call from zeroed counts, which must launch resample-apply
+        ``expect_ra`` times and K1 never: (result, seconds); the launches
+        go to the report under ``key``."""
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts(fused_pf, resample)
+        t0 = time.perf_counter()
+        res = call()
+        sync()
+        dt = time.perf_counter() - t0
+        got = (fused_pf.fused_window.launches,
+               resample.resample_apply.launches)
+        if cuda and got != (0, expect_ra):
+            raise AssertionError(f"{label}: (K1, resample-apply) launches "
+                                 f"{got}, expected (0, {expect_ra})")
+        arrays = [np.asarray(a) for a in (
+            res.values() if isinstance(res, dict) else
+            [x for r in res for x in (r if isinstance(r, tuple) else (r,))]
+            if isinstance(res, (list, tuple)) else [res])]
+        if not all(np.isfinite(a).all() for a in arrays):
+            raise AssertionError(f"{label}: non-finite values")
+        if shape is not None and arrays[0].shape != shape:
+            raise AssertionError(f"{label}: shape {arrays[0].shape}, "
+                                 f"expected {shape}")
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+                else float("nan"))
+        if key is not None:
+            out["launches"][key] = got[1]
+        phase("22 predict", f"{label}: {dt:.3f} s a call, (K1, "
+              f"resample-apply) launches {got}, peak {peak:.3f} GiB "
+              f"({card})")
+        return res, dt
+
+    data = {name: mod.generate_data(gen, p, T_len)[0] for name, mod, p in (
+        ("svm", svm, svm.from_scalars(0.9, 0.5, 1.0, device=dev)),
+        ("garch", garch, garch.from_alpha_beta_gamma(0.1, 0.6, 0.2, 0.5,
+                                                     device=dev)),
+        ("svjm", svjm, svjm.from_scalars(0.9, 0.5, 1.0, 0.1, 2.0,
+                                         device=dev)),
+        ("lgssm", lgssm, lgssm.from_scalars(0.8, 0.5, 0.3, device=dev)))}
+    truth = dict(svm=svm.from_scalars(0.9, 0.5, 1.0),
+                 garch=garch.from_alpha_beta_gamma(0.1, 0.6, 0.2, 0.5),
+                 svjm=svjm.from_scalars(0.9, 0.5, 1.0, 0.1, 2.0),
+                 lgssm=lgssm.from_scalars(0.8, 0.5, 0.3))
+    cls = dict(svm=samplers.SVMSampler, garch=samplers.GARCHSampler,
+               svjm=samplers.SVJMSampler, lgssm=samplers.LGSSMSampler)
+    smp = {}
+    for name in cls:
+        smp[name] = cls[name](data[name], device=dev, seed=30)
+        smp[name].parameters = truth[name]
+    warm = samplers.SVMSampler(data["svm"][:20], device=dev)
+    warm.predict(N=N_p)
+    warm.predictive_loglikelihood(5, N=N_p)          # warm-up
+    lat = (T_len, 1)
+    s = smp["svm"]
+    timed("SVM predict smoothed (pf='poyiadjis_N')",
+          lambda: s.predict(N=N_p, pf="poyiadjis_N"), T_len, lat,
+          "predict_svm")
+    timed("SVM predict filtered (lag=0)", lambda: s.predict(N=N_p, lag=0),
+          T_len, lat)
+    timed("SVM predict fixed-lag (lag=5)", lambda: s.predict(N=N_p, lag=5),
+          T_len, lat)
+    timed("SVM predict target='y'", lambda: s.predict(target="y", N=N_p),
+          T_len, lat)
+    timed(f"SVM predict N={sizes['N_big']}",
+          lambda: s.predict(N=sizes["N_big"]), T_len, lat,
+          "predict_svm_n10000")
+    timed("GARCH predict target='y'",
+          lambda: smp["garch"].predict(target="y", N=N_p), T_len, lat,
+          "predict_garch_y")
+    for name in cls:
+        timed(f"{cls[name].__name__}.predictive_loglikelihood(5, N={N_p})",
+              lambda: smp[name].predictive_loglikelihood(5, N=N_p), T_len,
+              (6,))
+    seqs = [svm.generate_data(gen, svm.from_scalars(0.9, 0.5, 1.0,
+                                                    device=dev), n)[0]
+            for n in sizes["seq"]]
+    sq = samplers.SeqSVMSampler(seqs, device=dev, seed=31)
+    sq.parameters = truth["svm"]
+    res, _ = timed(f"SeqSVMSampler.predict, {len(seqs)} sequences",
+                   lambda: sq.predict(N=N_p), max(sizes["seq"]),
+                   key="predict_seq")
+    if [r[0].shape[0] for r in res] != list(sizes["seq"]):
+        raise AssertionError("Seq predict lengths")
+    timed("SeqSVMSampler.predictive_loglikelihood(num_steps_ahead=5)",
+          lambda: sq.predictive_loglikelihood(num_steps_ahead=5, N=N_p),
+          max(sizes["seq"]), (6,))
+    ls = smp["lgssm"]
+    for label, call, shape in (
+            ("latent", lambda: ls.predict(kind="marginal"), lat),
+            ("y", lambda: ls.predict(target="y", kind="marginal"), lat),
+            ("latent samples (FFBS, 8)", lambda: ls.latent_var_sample(
+                8, kind="marginal"), (8,) + lat),
+            ("y samples (marginal, 8)", lambda: ls.y_sample(
+                8, kind="marginal", distr="marginal"), (8,) + lat),
+            ("simulate_distr", lambda: ls.simulate_distr(T_len), None),
+            ("simulate_paths (8)", lambda: ls.simulate(T_len, num_samples=8),
+             None)):
+        timed(f"LGSSM exact {label}, float64", call, 0, shape)
+
+    # (c) the LGSSM's particle predict against the Kalman smoother: R
+    # independent rows of one padded program, z per t of their mean
+    R, T_z, N_z = sizes["z"]
+    ys_z = data["lgssm"][:T_z]
+    zs = samplers.SeqLGSSMSampler([ys_z] * R, device=dev, seed=32)
+    zs.parameters = truth["lgssm"]
+    p64 = params_map(lambda x: x.double().to(dev), truth["lgssm"])
+    for lag in (None, 0, 5):
+        pf = np.stack([m_[:, 0] for m_, _ in zs.predict(N=N_z, lag=lag)])
+        exact = lgssm.latent_var_distr(p64, ys_z.double()[None], lag=lag)[
+            0][0, :, 0].cpu().numpy()
+        z = (pf.mean(0) - exact) / (pf.std(0, ddof=1) / R ** 0.5)
+        phase("22 LGSSM oracle", f"PF predict lag={lag} (N={N_z}, T={T_z}) "
+              f"over {R} rows against the Kalman moments: max |z| over t "
+              f"{np.abs(z).max():.3f}, mean |PF - exact| "
+              f"{np.abs(pf.mean(0) - exact).mean():.4f}")
+        if not np.abs(z).max() < 5:
+            raise AssertionError(f"PF predict lag={lag} off the Kalman "
+                                 f"moments: max |z| {np.abs(z).max()}")
+
+    # (d) the exact predict on the card against the CPU, float64, on
+    # shared normals
+    cpu = torch.device("cpu")
+    ys64 = data["lgssm"].double()[None]
+    g64 = torch.Generator().manual_seed(33)
+    z_lat = torch.randn((1, 4, T_len, 1), generator=g64, dtype=torch.float64)
+    z_eps = torch.randn((1, 4, T_len, 1), generator=g64, dtype=torch.float64)
+    z_path = (torch.randn((1, 4, 1), generator=g64, dtype=torch.float64),
+              torch.randn((1, 4, T_len, 1), generator=g64,
+                          dtype=torch.float64),
+              torch.randn((1, 4, T_len + 1, 1), generator=g64,
+                          dtype=torch.float64))
+
+    def exact_outputs(d):
+        p = params_map(lambda x: x.to(d), p64)
+        y = ys64.to(d)
+        res = [*lgssm.y_distr(p, y), *lgssm.y_distr(p, y, lag=0),
+               *lgssm.y_distr(p, y, lag=5),
+               lgssm.y_sample(p, None, y, num_samples=4, distr="marginal",
+                              normals=z_lat.to(d), eps=z_eps.to(d)),
+               *lgssm.simulate_distr(p, T_len).values(),
+               *lgssm.simulate_paths(p, None, T_len, num_samples=4, normals=[
+                   a.to(d) for a in z_path]).values()]
+        return [r.cpu() for r in res]
+    worst = max(float((a - b).norm() / b.norm())
+                for a, b in zip(exact_outputs(dev), exact_outputs(cpu)))
+    phase("22 exact card-cpu", f"LGSSM y_distr (lag None, 0, 5), "
+          f"y_sample, simulate_distr, simulate_paths in float64, T={T_len}: "
+          f"normwise relative |card - CPU| at most {worst:.3e} (bound "
+          f"1e-9)")
+    if not worst <= 1e-9:
+        raise AssertionError(f"exact predict card vs CPU {worst}")
+
+    # (e) the adaptive proposals through fit_scan, the default multinomial
+    # path (no fused bundle): resample-apply once per window step
+    C_f, N_f, it_f = sizes["fit"]
+    for name, kern in (("svm", "laplace"), ("svm", "ep"), ("svjm", "ep"),
+                       ("svjm", "ep_avg")):
+        f = cls[name](data[name], device=dev, seed=34)
+        f.parameters = truth[name]
+        fkw = dict(kernel=kern, N=N_f, subsequence_length=S,
+                   buffer_length=B)
+
+        def fit(n_iters):
+            _, aux = f.fit_scan("SGLD", num_iters=n_iters, epsilon=0.01,
+                                num_chains=C_f, record="none",
+                                return_aux=True, **fkw)
+            p = f.parameters
+            return [aux] + [getattr(p, k) for k in p.__dataclass_fields__]
+        fit(1)                                            # warm-up
+        _, dt = timed(f"{cls[name].__name__}.fit_scan SGLD kernel={kern!r} "
+                      f"C={C_f} N={N_f} S={S} B={B}, {it_f} iterations",
+                      lambda: [a.cpu() for a in fit(it_f)], it_f * W)
+        phase("22 proposals", f"{name} {kern}: {C_f * it_f / dt:.1f} "
+              f"aggregate steps/s ({card})")
+    seconds = time.perf_counter() - t_phase
+    phase("22 seconds", f"{seconds:.1f} s")
+    return out
 
 
 def paris_phase(dev, card, sizes=PARIS_SIZES):
@@ -1973,6 +2262,10 @@ def main():
                            for r in paris["resample_apply"].values()))
     steps_k1 = stepper_phase(dev, card)
 
+    # 22. the predict surface (resample-apply at its wide rows) and the
+    # adaptive proposals
+    predict = predict_phase(dev, card)
+
     main_shape = ra_times["K2b"]
     k1_tpu = "sgmcmc_tpu/ops/pallas/fused_pf.py:121"
 
@@ -2060,6 +2353,15 @@ def main():
            "launches": paris[key], **paris["resample_apply"][label]}
           for label, key in (("paris_100", "grid_launches"),
                              ("paris_ld", "ld_launches"))],
+        # the same kernel at the predict surface's wide rows (its wide
+        # launch), with the launches of the predict call that runs each
+        *[{"name": f"resample_apply_{label}", "route": "cuda",
+           "source": "sgmcmc_tpu_torch/csrc/resample_apply.cu",
+           "replaces": "sgmcmc_tpu/ops/pallas/resample.py:178 (K2a), "
+                       ":232 (K2b)",
+           "launches": predict["launches"][label],
+           **predict["resample_apply"][label]}
+          for label in PREDICT_SHAPES],
         {"name": "philox_normals", "route": "cuda",
          "source": "sgmcmc_tpu_torch/csrc/philox_normals.cu",
          "replaces": "scripts/tpu_probe_kernel_rng.py:15",

@@ -8,6 +8,7 @@
         [--kind pf|marginal|complete] [--gibbs]
         [--pf poyiadjis_N|paris|paris_ar|...] [--subsequence 40]
         [--iter-type SGLD|SGRLD|SGD|SGRD|ADAGRAD|SGLD-CV]
+        [--predict [--target latent|y] [--lag K] | --predictive K]
 
 Runs ``SVMSampler.fit_scan("SGLD", record="none")`` at the benchmark
 configuration (SVM, T=1000, N=1024, S=40, B=10, Poyiadjis O(N), systematic
@@ -24,7 +25,12 @@ selects the particle kernel, ``--pf`` the smoother (``paris`` /
 ``--subsequence`` the subsequence length (-1: the whole series, no
 buffer) and ``--iter-type`` the stepper (SGRLD and SGRD need the LGSSM's
 preconditioner; SGLD-CV centres at the start parameters, with their
-noisy gradient as the centering gradient).  With ``--model lgssm``, ``--kind marginal``
+noisy gradient as the centering gradient); ``--kernel laplace|ep`` (SVM)
+and ``ep|ep_avg`` (SVJM) run the adaptive proposals.  ``--predict`` times
+one chain's ``predict`` (at the true parameters; ``--target``, ``--lag``,
+``--pf`` and ``--particles`` as its arguments) in place of a fit, and
+``--predictive K`` its ``predictive_loglikelihood(K)``; a step is then
+one call.  With ``--model lgssm``, ``--kind marginal``
 or ``complete`` runs the exact-message score kinds instead of the particle
 filter's, and ``--gibbs`` times ``--iters`` blocked-Gibbs sweeps
 (``LGSSMSampler.sample_gibbs`` on every chain) in place of a fit; a step
@@ -34,7 +40,7 @@ is then one chain's sweep.  It prints:
     then the median and the lower and upper quartile);
   - one fit under ``torch.profiler``: the device's busy time, as the union
     of its kernel, memcpy and memset intervals in the trace; the idle share
-    of the fit's span (the ``fit_scan`` annotation, which ends after a
+    of the fit's span (the ``run`` annotation, which ends after a
     synchronising read of the result); each kernel's share of the busy time;
   - the peak device memory of the fits (``max_memory_allocated``);
   - the device-memory bandwidth of a 2 GiB device-to-device copy (bytes read
@@ -103,7 +109,8 @@ def main():
     ap.add_argument("--rng", default="host", choices=("host", "kernel"))
     ap.add_argument("--model", default="svm",
                     choices=("svm", "lgssm", "garch", "svjm"))
-    ap.add_argument("--kernel", default=None, choices=("optimal", "prior"))
+    ap.add_argument("--kernel", default=None,
+                    choices=("optimal", "prior", "laplace", "ep", "ep_avg"))
     ap.add_argument("--kind", default="pf",
                     choices=("pf", "marginal", "complete"))
     ap.add_argument("--gibbs", action="store_true")
@@ -112,7 +119,12 @@ def main():
     ap.add_argument("--iter-type", default="SGLD",
                     choices=("SGLD", "SGRLD", "SGD", "SGRD", "ADAGRAD",
                              "SGLD-CV"))
+    ap.add_argument("--predict", action="store_true")
+    ap.add_argument("--target", default="latent", choices=("latent", "y"))
+    ap.add_argument("--lag", type=int, default=None)
+    ap.add_argument("--predictive", type=int, default=None)
     args = ap.parse_args()
+    calls = args.predict or args.predictive is not None
     N = args.particles
     if not torch.cuda.is_available():
         sys.exit("profile_torch_slice: no CUDA device is available")
@@ -148,7 +160,14 @@ def main():
               resampler=args.resampler, rng=args.rng, kernel=args.kernel,
               kind=args.kind)
     Z = sampler.model.get_kernel(args.kernel).noise_dim
-    if args.gibbs:
+    if calls:
+        sampler.parameters = truth
+        what = (f"predictive_loglikelihood({args.predictive})"
+                if args.predictive is not None else
+                f"predict(target={args.target!r}, lag={args.lag})")
+        print(f"config: {args.model} (kernel {args.kernel or 'default'}) "
+              f"{what}, one chain, N={N}, T={T}, {args.pf}")
+    elif args.gibbs:
         print(f"config: {args.model} blocked Gibbs, {args.chains} chains, "
               f"{args.iters} sweeps, T={T}")
     elif args.kind != "pf":
@@ -170,6 +189,14 @@ def main():
             (args.chains,) + x.shape[1:]).contiguous(), start)
 
     def fit():
+        if args.predictive is not None:
+            return float(sampler.predictive_loglikelihood(
+                args.predictive, N=N, kernel=args.kernel).sum())
+        if args.predict:
+            mean, _ = sampler.predict(
+                target=args.target, lag=args.lag, N=N, kernel=args.kernel,
+                pf="filter" if args.lag == 0 else args.pf)
+            return float(mean.sum())
         if args.gibbs:
             for _ in range(args.iters):
                 sampler.sample_gibbs()
@@ -182,21 +209,26 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     fit()
     rates = []
+    steps = 1 if calls else args.chains * args.iters
     for _ in range(args.runs):
         t0 = time.perf_counter()
         fit()
-        rates.append(args.chains * args.iters / (time.perf_counter() - t0))
+        rates.append(steps / (time.perf_counter() - t0))
     q = statistics.quantiles(rates, n=4) if len(rates) > 1 else rates * 3
     print("steps/s runs:", " ".join(f"{r:.1f}" for r in rates))
     print(f"steps/s median {statistics.median(rates):.1f}, quartiles "
           f"{q[0]:.1f} / {q[2]:.1f} ({card})")
+    if calls:
+        print(f"seconds per call: " + " ".join(
+            f"{1 / r:.4f}" for r in rates) + f", median "
+            f"{1 / statistics.median(rates):.4f} ({card})")
     if args.gibbs:
         print(f"seconds per sweep of {args.chains} chains: median "
               f"{args.chains / statistics.median(rates):.4f} ({card})")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with record_function("fit_scan"):
+        with record_function("run"):
             fit()
     peak = torch.cuda.max_memory_allocated()
     out_dir = ROOT / "build" / "profile"
@@ -205,9 +237,9 @@ def main():
     prof.export_chrome_trace(str(trace_path))
     events = json.loads(trace_path.read_text())["traceEvents"]
     span = [e for e in events if e.get("cat") == "user_annotation"
-            and e.get("name") == "fit_scan"]
+            and e.get("name") == "run"]
     if len(span) != 1:
-        raise RuntimeError(f"{len(span)} fit_scan annotations in the trace")
+        raise RuntimeError(f"{len(span)} run annotations in the trace")
     t_lo = float(span[0]["ts"])
     t_hi = t_lo + float(span[0]["dur"])
     dev_ev = [e for e in events if e.get("cat") in DEVICE_CATS
@@ -218,7 +250,7 @@ def main():
               min(float(e["ts"]) + float(e["dur"]), t_hi)) for e in dev_ev]
     busy = union_us([iv for iv in ivals if iv[1] > iv[0]])
     wall = t_hi - t_lo
-    print(f"profiled fit: span {wall / 1e3:.3f} ms, device busy "
+    print(f"profiled run: span {wall / 1e3:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms (union of {len(dev_ev)} kernel/memcpy/memset "
           f"intervals), idle share {1 - busy / wall:.4f} ({card})")
     per_name = defaultdict(lambda: [0.0, 0])

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time variants of the fused-window kernel (K1) and the standalone Philox
-generator (K4) for the port's package found under ``--root``.
+"""Time variants of the fused-window kernel (K1), the standalone Philox
+generator (K4) and the resample-apply kernel for the port's package found
+under ``--root``.
 
     python3 scripts/time_fused_window.py [--root DIR] [--variant NAME ...]
         [--out FILE]
@@ -12,6 +13,14 @@ at its own shape (``--list`` prints them); a variant may also be spelled
 out as ``body[,rng][,ess=0.5][,ld][,W=60][,C=8192]`` (``ld``: the Seq LD
 fit's valid-gate shape, below).  ``philox`` is K4 at
 the initial-state draw of the headline path (8192 chains x 1024 normals).
+A resample-apply variant is ``ra,C=..,N=..,K=..`` (C chains of N
+particles, rows of K floats, multinomial positions on random weights):
+the ``ra_predict_*`` rows are the predict surface's wide rows (the shapes
+of ``chip_smoke.PREDICT_SHAPES``), the others the default and PaRIS paths'
+(K = 4, 6, 1).  Besides the CUDA-event time over a loop of host calls, a
+resample-apply line carries the device time per call in a CUDA graph
+(``graph_ms``, no host launch cost) and both times of ``torch.searchsorted``
++ ``torch.gather`` (``gather_ms``, ``gather_graph_ms``).
 
 Shapes.  W=60 rows: C=8192 chains, N=1024, the buffered window of S=40,
 B=10 (zero weights on the 10-step buffers).  ``*_seq`` rows: the Seq SGLD
@@ -60,6 +69,14 @@ PRESETS = {
     "svjm_rng_seq": "svjm,rng,W=24",
     "svm_valid_rng_ld": "svm,rng,ld",
     "philox": "philox",
+    "ra_predict_svm": "ra,C=1,N=1000,K=3001",
+    "ra_predict_svm_n10000": "ra,C=1,N=10000,K=3001",
+    "ra_predict_seq": "ra,C=8,N=1000,K=2824",
+    "ra_predict_garch_y": "ra,C=1,N=1000,K=2002",
+    "ra_k2b": "ra,C=8192,N=1024,K=4",
+    "ra_k6": "ra,C=8192,N=1024,K=6",
+    "ra_paris_100": "ra,C=8192,N=100,K=1",
+    "ra_paris_ld": "ra,C=64,N=1000,K=1",
 }
 
 
@@ -67,14 +84,15 @@ def parse(spec):
     """A variant spec as a dict (see the module docstring)."""
     spec = PRESETS.get(spec, spec)
     parts = spec.split(",")
-    v = dict(body=parts[0], rng=False, ess=None, ld=False, W=60, C=8192)
+    v = dict(body=parts[0], rng=False, ess=None, ld=False, W=60, C=8192,
+             N=N, K=1)
     for p in parts[1:]:
         key, _, val = p.partition("=")
         if key in ("rng", "ld"):
             v[key] = True
         elif key == "ess":
             v[key] = float(val)
-        elif key in ("W", "C"):
+        elif key in ("W", "C", "N", "K"):
             v[key] = int(val)
         else:
             raise SystemExit(f"time_fused_window: unknown option {p!r}")
@@ -172,7 +190,7 @@ def main():
         sys.exit("time_fused_window: no CUDA device is available")
     sys.path.insert(0, str(Path(args.root).resolve()))
     from sgmcmc_tpu_torch.models import garch, lgssm, svjm, svm
-    from sgmcmc_tpu_torch.ops.cuda import fused_pf, philox
+    from sgmcmc_tpu_torch.ops.cuda import fused_pf, philox, resample
     models = dict(svm=svm, lgssm=lgssm, garch=garch, svjm=svjm)
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
@@ -183,7 +201,32 @@ def main():
     dev = torch.device("cuda")
     for name in args.variant or list(PRESETS):
         v = parse(name)
-        if v["body"] == "philox":
+        extra = {}
+        if v["body"] == "ra":
+            C, n, K = v["C"], v["N"], v["K"]
+            gen = torch.Generator(device=dev).manual_seed(0)
+            cdf = resample.weights_cdf(
+                2.0 * torch.randn((C, n), generator=gen, device=dev))
+            pos = torch.rand((C, n), generator=gen, device=dev)
+            vals = torch.randn((C, n, K), generator=gen, device=dev)
+
+            def call():
+                return resample.resample_apply(pos, cdf, vals)
+
+            def gather():
+                return resample.resample_apply_reference(pos, cdf, vals)
+            reps = max(10, min(200, int(2e8 / (8 * C * n * K))))
+            rounds = time_call(call, reps, args.rounds)
+            extra = dict(
+                graph_ms=chip_smoke.graph_ms(call, reps=reps),
+                gather_ms=statistics.median(time_call(gather, reps,
+                                                      args.rounds)),
+                gather_graph_ms=chip_smoke.graph_ms(gather, reps=reps))
+            shape = f"C={C} N={n} K={K}"
+            bound = chip_smoke.bound_ms(
+                4 * (pos.numel() + cdf.numel() + 2 * vals.numel()),
+                C * n * (n.bit_length() + 1))
+        elif v["body"] == "philox":
             seeds = torch.randint(
                 -2 ** 63, 2 ** 63 - 1, (v["C"],), dtype=torch.int64,
                 generator=torch.Generator(device=dev).manual_seed(0),
@@ -228,7 +271,7 @@ def main():
         rec = dict(root=args.root, variant=name, spec=PRESETS.get(name, name),
                    shape=shape, ms=statistics.median(rounds),
                    bound_ms=bound[0], bound_by=bound[1],
-                   rounds=[round(r, 5) for r in rounds], card=card)
+                   rounds=[round(r, 5) for r in rounds], **extra, card=card)
         line = json.dumps(rec)
         print(line, flush=True)
         if args.out:

@@ -34,6 +34,19 @@
 // and the positions once, coalesced, keeps the search in shared memory,
 // and writes the output coalesced; the row reads are a gather within the
 // chain's N*K*4 bytes (16 KB at N=1024, K=4), which stay in L1/L2.
+//
+// Wide rows.  The particle filter's predict surface resamples each row of
+// an elementwise statistic with the particles: K = D + T * dim, 2,000-3,000
+// floats at T = 1000, for one chain (or one row per sequence).  There the
+// launch above is C * ceil(n / 1024) blocks, one block for one chain, which
+// copies 12 MB alone on a card of 132 SMs.  So when K >= kWideK and that
+// launch would leave SMs idle, the wide launch takes over: a grid of (C *
+// ceil(n / kWideRows)) x ceil(K / kWideCols) blocks, each of which finds
+// the ancestors of its kWideRows positions by binary search in the CDF in
+// device memory (one thread a position; the CDF stays in L2) and copies
+// those rows' kWideCols-column slice, every thread loading all its
+// kWideRows x kColsPerThread floats before it stores them (no division
+// per element, neighbouring threads on neighbouring columns).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,6 +55,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 1024;            // positions per block
 constexpr size_t kSmemLimit = 232448;  // dynamic shared memory per block
+// the wide launch: rows of at least kWideK floats, kWideRows positions and
+// kWideCols = kThreads * kColsPerThread columns a block
+constexpr int kWideK = 64;
+constexpr int kWideRows = 8;
+constexpr int kColsPerThread = 4;
+constexpr int kWideCols = kThreads * kColsPerThread;
+constexpr int kMaxGridY = 65535;
 
 size_t shared_bytes(int N) {
   return kTile * sizeof(int) + static_cast<size_t>(N) * sizeof(float);
@@ -100,6 +120,75 @@ resample_apply_kernel(const float* __restrict__ pos,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+resample_apply_wide_kernel(const float* __restrict__ pos,
+                           const float* __restrict__ cdf,
+                           const float* __restrict__ vals,
+                           float* __restrict__ out, int n, int N, int K,
+                           int row_tiles) {
+  __shared__ int sidx[kWideRows];
+  const int c = blockIdx.x / row_tiles;
+  const int i0 = (blockIdx.x - c * row_tiles) * kWideRows;
+  const int cnt = min(kWideRows, n - i0);
+  if (threadIdx.x < cnt) {
+    sidx[threadIdx.x] = ancestor(cdf + static_cast<size_t>(c) * N, N,
+                                 pos[static_cast<size_t>(c) * n + i0 +
+                                     threadIdx.x]);
+  }
+  __syncthreads();
+  const float* vals_c = vals + static_cast<size_t>(c) * N * K;
+  float* out_t = out + (static_cast<size_t>(c) * n + i0) * K;
+  const int k0 = blockIdx.y * kWideCols + threadIdx.x;
+  float v[kWideRows][kColsPerThread];
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) {
+    const float* src = vals_c + static_cast<size_t>(sidx[r < cnt ? r : 0]) * K;
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) {
+      const int k = k0 + j * kThreads;
+      if (r < cnt && k < K) v[r][j] = src[k];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) {
+    float* dst = out_t + static_cast<size_t>(r) * K;
+#pragma unroll
+    for (int j = 0; j < kColsPerThread; ++j) {
+      const int k = k0 + j * kThreads;
+      if (r < cnt && k < K) dst[k] = v[r][j];
+    }
+  }
+}
+
+// The card's SM count (cached per device).
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0) {
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  }
+  return counts[dev];
+}
+
+// True where the wide launch fills the card better: rows of at least
+// kWideK floats, and fewer blocks of the tiled launch than SMs.
+bool use_wide(int C, int n, int K) {
+  const long long tiled = static_cast<long long>(C) * ((n + kTile - 1) / kTile);
+  const int col_tiles = (K + kWideCols - 1) / kWideCols;
+  return K >= kWideK && col_tiles <= kMaxGridY && tiled < sm_count();
+}
+
+int launch_wide(const float* pos, const float* cdf, const float* vals,
+                float* out, int C, int n, int N, int K, void* stream) {
+  const int row_tiles = (n + kWideRows - 1) / kWideRows;
+  const dim3 grid(C * row_tiles, (K + kWideCols - 1) / kWideCols);
+  resample_apply_wide_kernel<<<grid, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      pos, cdf, vals, out, n, N, K, row_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool kSharedCdf>
 int launch(const float* pos, const float* cdf, const float* vals,
            float* out, int C, int n, int N, int K, void* stream) {
@@ -129,12 +218,21 @@ int sgmcmc_resample_apply_max_shared_n(void) {
   return static_cast<int>((kSmemLimit - kTile * sizeof(int)) / sizeof(float));
 }
 
+// 1 when a call at (C, n, K) takes the wide launch on the calling thread's
+// current device, else 0.
+int sgmcmc_resample_apply_is_wide(int C, int n, int K) {
+  return use_wide(C, n, K) ? 1 : 0;
+}
+
 // Launches the resample-apply on `stream` of the calling thread's current
 // device (the caller selects it); returns cudaGetLastError().  The caller
-// ensures C, n, N, K >= 1 and C * ceil(n / 1024) < 2^31.
+// ensures C, n, N, K >= 1 and C * ceil(n / 8) < 2^31.
 int sgmcmc_resample_apply(const float* pos, const float* cdf,
                           const float* vals, float* out, int C, int n,
                           int N, int K, void* stream) {
+  if (use_wide(C, n, K)) {
+    return launch_wide(pos, cdf, vals, out, C, n, N, K, stream);
+  }
   if (shared_bytes(N) <= kSmemLimit) {
     return launch<true>(pos, cdf, vals, out, C, n, N, K, stream);
   }

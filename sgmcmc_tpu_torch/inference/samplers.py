@@ -2,7 +2,9 @@
 ``sgmcmc_tpu/inference/samplers.py``: the steppers, ``fit``,
 ``fit_timed``, ``fit_scan`` for every gradient iter type and
 ``fit_scan_chunked``, the chain plumbing, the likelihood surface, the
-multi-sequence samplers and the LGSSM's blocked Gibbs sampler).
+predict surface (``predict``, ``predictive_loglikelihood``, ``simulate``
+and their aliases), the multi-sequence samplers and the LGSSM's blocked
+Gibbs sampler).
 
 A :class:`Sampler` holds the model, the observations, the prior, the
 parameters (always with a leading chain axis: ``[1, ...]`` for one
@@ -20,10 +22,27 @@ import warnings
 import numpy as np
 import torch
 
+from ..models import lgssm as lgssm_mod
 from ..models.base import params_map
 from ..models.registry import ModelAPI, get_model
+from ..ops.buffered import run_buffered_pf
 from ..utils.trace import unstack_trace
 from . import sgmcmc
+
+
+def _pf_options(kwargs: dict, names=("kernel", "resampler", "resample_mode")):
+    """The particle filter options among a predict call's keywords (the
+    others are ignored, as in the JAX package)."""
+    return {k: kwargs[k] for k in names if k in kwargs}
+
+
+def _step_valid(lengths: torch.Tensor, observations) -> torch.Tensor:
+    """[R, T_max] 1 on the steps of each row of ``observations [R, T_max,
+    m]`` up to its length, 0 on its padded tail."""
+    T_max = observations.shape[1]
+    return (torch.arange(T_max, device=observations.device)
+            < lengths[:, None]).to(observations.dtype)
+
 
 # fit_scan's iter types that run one stepper of Sampler._step
 _STEP_OF = {"SGLD": "sgld", "SGRLD": "sgrld", "SGD": "sgd", "SGRD": "sgrd"}
@@ -635,6 +654,243 @@ class Sampler:
             return None
         return params_map(lambda *xs: torch.cat(xs, 1), *chunks)
 
+    # -- prediction / latent recovery --------------------------------------
+    def _one_chain(self, what: str):
+        """The sampler's parameters, which must be one chain's."""
+        C = self.parameters.num_chains
+        if C != 1:
+            raise ValueError(
+                f"{what} works on one chain's parameters, but the sampler "
+                f"holds {C} chains; call select_chain(i) first")
+        return self.parameters
+
+    def _exact_inputs(self, what: str):
+        """(float64 parameters, float64 observations [1, T, m]) for the
+        exact-message predict functions."""
+        p = self._one_chain(what)
+        return (params_map(lambda x: x.double(), p),
+                self.observations.double()[None])
+
+    def _pf_draws(self, R: int, W: int, N: int, kernel, resampler: str,
+                  pf: str):
+        """The particle filter's draws for R rows of W steps, in
+        ``run_buffered_pf``'s layout."""
+        gen, dev = self.generator, self.device
+        Z = kernel.noise_dim
+        z0 = torch.randn((R, Z, N), generator=gen, device=dev)
+        normals = torch.randn((R, W, Z, N), generator=gen, device=dev)
+        # systematic resampling takes one uniform a step, the others one a
+        # particle
+        u = torch.rand((R, W) if resampler == "systematic" else (R, W, N),
+                       generator=gen, device=dev)
+        # PaRIS's backward uniforms at its default n_tilde = 2
+        v = (torch.rand((R, W, N, 2), generator=gen, device=dev)
+             if pf in sgmcmc.PARIS_SMOOTHERS else None)
+        return dict(z0=z0, normals=normals, u=u, v=v)
+
+    def _run_pf(self, params, observations, stat_fn, statistic_dim: int,
+                N: int, pf: str, kernel=None, resampler="multinomial",
+                resample_mode="auto", **modes):
+        """``run_buffered_pf`` over the rows of ``observations [R, W, m]``
+        (``params`` of one chain, repeated for every row) with the
+        smoother's ``modes``."""
+        m = self.model
+        R, W = observations.shape[:2]
+        params = params_map(lambda x: x.expand((R,) + x.shape[1:]), params)
+        kern = m.get_kernel(kernel)
+        pm, pv = m.prior_mean_var(params)
+        return run_buffered_pf(
+            kern, stat_fn, params, observations,
+            **self._pf_draws(R, W, N, kern, resampler, pf),
+            statistic_dim=statistic_dim, smoother=pf, prior_mean=pm,
+            prior_var=pv, resampler=resampler, resample_mode=resample_mode,
+            generator=self.generator, **modes)
+
+    def predict(self, target: str = "latent", kind: str | None = None,
+                pf: str | None = None, N: int = 1000, squared=False,
+                lag=None, num_samples: int | None = None,
+                distr: str | None = None, **kwargs):
+        """Latent or observation prediction for the sampler's one chain
+        (``select_chain`` first when it holds more): ``(mean [T, .], cov
+        [T, ., .])`` numpy arrays, or with ``num_samples`` posterior draws.
+
+        ``target`` is ``"latent"`` or ``"y"``; ``lag`` selects
+        p(. | y_{<= t+lag}): None smoothed, 0 filtered (the PF path then
+        needs ``pf="filter"``, its default there), k >= 1 fixed-lag.
+        ``kind="marginal"`` (the LGSSM) runs the exact messages in float64,
+        where ``num_samples`` draws ``distr="joint"`` (FFBS) or
+        ``"marginal"`` paths; other kinds run the particle filter with
+        elementwise statistics over the whole series (``kernel``,
+        ``resampler`` and ``resample_mode`` in ``kwargs``)."""
+        if target not in ("latent", "y"):
+            raise ValueError(f"Unrecognized target '{target}'")
+        m = self.model
+        if kind == "marginal":
+            # the LGSSM is the one model with exact messages (the
+            # discrete-state models' come with slice 12)
+            if m.latent_var_distr is None:
+                raise NotImplementedError(
+                    f"{m.name} has no analytic predict for target="
+                    f"'{target}' (the discrete-state models' predict is "
+                    "ROADMAP.md, Queue 1, slice 12: the HMM family)")
+            p, obs = self._exact_inputs("predict")
+            if num_samples is not None:
+                fn = (m.latent_var_sample if target == "latent"
+                      else lgssm_mod.y_sample)
+                return fn(p, self.generator, obs, num_samples=num_samples,
+                          distr=distr or "joint", lag=lag)[0].cpu().numpy()
+            fn = (m.latent_var_distr if target == "latent"
+                  else lgssm_mod.y_distr)
+            mean, cov = fn(p, obs, lag=lag)
+            return mean[0].cpu().numpy(), cov[0].cpu().numpy()
+        if num_samples is not None:
+            raise NotImplementedError(
+                "joint posterior sampling is not available on the PF path")
+        pf, fixed_lag, stat_fn, stat_dim = self._pf_predict_setup(
+            target, pf, lag, squared)
+        p = self._one_chain("predict")
+        out = self._run_pf(p, self.observations[None], stat_fn, stat_dim, N,
+                           pf, elementwise=True, window_length=self.T,
+                           fixed_lag=fixed_lag, **_pf_options(kwargs))
+        mean, cov = self._pf_stat_to_moments(
+            target, squared, p, out.mean_statistic.reshape(1, self.T, -1))
+        return mean[0].cpu().numpy(), cov[0].cpu().numpy()
+
+    def _pf_predict_setup(self, target, pf, lag, squared):
+        """The PF predict contract, checked before the filter runs: (pf,
+        fixed lag, statistic, its dimension).  lag=0 needs the filter and
+        smoothing must not use it; ``squared`` is GARCH's."""
+        m = self.model
+        if target not in ("latent", "y"):
+            raise ValueError(f"Unrecognized target '{target}'")
+        if pf is None:
+            pf = "filter" if lag == 0 else "poyiadjis_N"
+        if lag == 0 and pf != "filter":
+            raise ValueError("pf must be 'filter' for lag = 0")
+        if lag is None and pf == "filter":
+            raise ValueError("pf must not be 'filter' for smoothing")
+        fixed_lag = int(lag) if (lag is not None and lag > 0) else None
+        if squared and target != "y" and m.name != "garch":
+            raise NotImplementedError(
+                f"squared=True latent moments are GARCH-only, not {m.name}")
+        if target == "y":
+            return pf, fixed_lag, m.y_statistic, m.y_statistic_dim
+        return pf, fixed_lag, m.suff_statistic, m.suff_statistic_dim
+
+    def _pf_stat_to_moments(self, target, squared, params, stats):
+        """Elementwise smoothed statistics [R, T, dim] -> per-t (mean, cov)
+        by the model's moment maps (``params`` of one chain)."""
+        m = self.model
+        params = params_map(
+            lambda x: x.expand((stats.shape[0],) + x.shape[1:]), params)
+        if target == "y":
+            return m.y_moments(params, stats)
+        if squared:
+            return m.latent_moments(params, stats, squared=True)
+        return m.latent_moments(params, stats)
+
+    def _predictive_normals(self, num_steps_ahead: int, N: int):
+        """The predictive statistic's Monte Carlo (or, for GARCH, forward-
+        simulation) normals [K+1, N, 1]."""
+        return torch.randn((num_steps_ahead + 1, N, 1),
+                           generator=self.generator, device=self.device)
+
+    def _pf_predictive(self, params, observations, num_steps_ahead: int,
+                       N: int, valid_length=None, **kwargs):
+        """The k-step predictive statistic's filter over the rows of
+        ``observations [R, T, m]``: (statistics [R, K+1], loglik [R]).  Its
+        Monte Carlo normals are drawn once and shared by every step and
+        row."""
+        m = self.model
+        normals = self._predictive_normals(num_steps_ahead, N)
+        stat_fn = m.make_predictive_stat_fn(
+            observations, num_steps_ahead, normals, valid_length=valid_length)
+        step_valid = (None if valid_length is None
+                      else _step_valid(valid_length, observations))
+        out = self._run_pf(params, observations, stat_fn,
+                           num_steps_ahead + 1, N, "filter",
+                           step_valid=step_valid, logsumexp_mode=True,
+                           **_pf_options(kwargs, ("kernel", "resample_mode")))
+        return out.statistics, out.loglikelihood
+
+    def predictive_loglikelihood(self, num_steps_ahead: int = 5,
+                                 kind: str | None = None, N: int = 1000,
+                                 lag: int = 1, **kwargs):
+        """k-step-ahead predictive log-likelihood of the sampler's one
+        chain: the particle filter's ``[K+1]`` numpy array (slot 0 the
+        filter's log-likelihood, slot k the summed k-step-ahead predictive
+        log-likelihood), or for ``kind="marginal"`` the exact
+        sum_t log p(y_t | y_{<= t-lag}) (float64)."""
+        m = self.model
+        if kind == "marginal":
+            if m.predictive_loglikelihood is None:
+                raise NotImplementedError(
+                    f"{m.name} has no exact predictive loglikelihood")
+            p, obs = self._exact_inputs("predictive_loglikelihood")
+            return float(m.predictive_loglikelihood(p, obs, lag=int(lag))[0])
+        p = self._one_chain("predictive_loglikelihood")
+        stats, loglik = self._pf_predictive(p, self.observations[None],
+                                            num_steps_ahead, N, **kwargs)
+        out = stats[0].cpu().numpy().copy()
+        out[0] = float(loglik[0])
+        return out
+
+    # -- simulate ----------------------------------------------------------
+    def simulate(self, T: int, parameters=None, return_distr: bool = False,
+                 num_samples: int | None = None, include_init: bool = True):
+        """One ``(ys, xs)`` draw of chain 0 from the model's data generator;
+        for the LGSSM ``return_distr=True`` gives the prior moment
+        trajectories (:func:`~..models.lgssm.simulate_distr`) and
+        ``num_samples`` joint prior trajectories
+        (:func:`~..models.lgssm.simulate_paths`), numpy arrays in float64,
+        of one chain's parameters."""
+        p = (self.parameters if parameters is None
+             else parameters.to(self.device))
+        if return_distr or num_samples is not None:
+            if not self.model.name.startswith("lgssm"):
+                raise NotImplementedError(
+                    "distributional simulate supports the LGSSM")
+            if p.num_chains != 1:
+                raise ValueError(
+                    f"simulate works on one chain's parameters, got "
+                    f"{p.num_chains}; call select_chain(i) first")
+            p = params_map(lambda x: x.double(), p)
+            if return_distr:
+                out = lgssm_mod.simulate_distr(p, T,
+                                               include_init=include_init)
+            else:
+                out = lgssm_mod.simulate_paths(
+                    p, self.generator, T, num_samples=num_samples,
+                    include_init=include_init)
+            return {k: v[0].cpu().numpy() for k, v in out.items()}
+        return self.model.generate_data(self.generator, p, T)
+
+    # -- the JAX package's (and the reference's) method names ---------------
+    def prior_init(self):
+        """Fresh parameters of one chain from the prior, projected."""
+        m = self.model
+        self._num_chains = None
+        self.parameters = m.project_parameters(
+            m.sample_prior(self.prior, self.generator, 1))
+        return self.parameters
+
+    def latent_var_distr(self, lag=None, **kwargs):
+        return self.predict(target="latent", lag=lag, **kwargs)
+
+    def latent_var_sample(self, num_samples: int = 1, **kwargs):
+        return self.predict(target="latent", num_samples=num_samples,
+                            **kwargs)
+
+    def y_distr(self, lag=None, **kwargs):
+        return self.predict(target="y", lag=lag, **kwargs)
+
+    def y_sample(self, num_samples: int = 1, **kwargs):
+        return self.predict(target="y", num_samples=num_samples, **kwargs)
+
+    def simulate_distr(self, T: int, parameters=None, include_init=True):
+        return self.simulate(T, parameters=parameters, return_distr=True,
+                             include_init=include_init)
+
 
 class SVMSampler(Sampler):
     def __init__(self, observations=None, **kw):
@@ -647,8 +903,6 @@ class GARCHSampler(Sampler):
 
 
 class SVJMSampler(Sampler):
-    """Stochastic-volatility jump model; its EP proposals are not ported
-    yet (ROADMAP.md, Queue 1, slice 9: the other proposals)."""
     def __init__(self, observations=None, **kw):
         super().__init__("svjm", observations, **kw)
 
@@ -705,8 +959,9 @@ class SeqSampler(Sampler):
     and each gradient subsamples ``num_sequences`` of them (-1: all) and a
     subsequence within each (:class:`~.sgmcmc.SeqPFScore`, or
     :class:`~.sgmcmc.SeqMarginalScore` for ``kind="marginal"``).  ``T`` is
-    the total length.  The predict surface is not ported yet (ROADMAP.md,
-    Queue 1, slice 9)."""
+    the total length.  The particle filter's predict surface runs every
+    sequence as one row of one padded program, its tails frozen by the
+    step validity gate."""
 
     def __init__(self, model, observations: list, num_sequences: int = -1,
                  **kw):
@@ -763,6 +1018,83 @@ class SeqSampler(Sampler):
         params = params_map(lambda x: x.double(), self.parameters)
         return self._per_chain(score(None, params,
                                      self.observations.double())[1])
+
+    def _sub_sampler(self, i: int) -> Sampler:
+        """A single-sequence view of sequence i, sharing the model, the
+        prior, the parameters and the generator."""
+        key = ("sub", i)
+        if key not in self._cache:
+            self._cache[key] = Sampler(
+                self.model, self.observations[i, :int(self.lengths[i])],
+                prior=self.prior, parameters=self.parameters,
+                device=self.device)
+        sub = self._cache[key]
+        sub.parameters = self.parameters
+        sub.generator = self.generator
+        return sub
+
+    def predict(self, target: str = "latent", kind: str | None = None,
+                pf: str | None = None, N: int = 1000, squared=False,
+                lag=None, num_samples: int | None = None,
+                distr: str | None = None, **kwargs) -> list:
+        """Per-sequence predictions, a list of :meth:`Sampler.predict`'s
+        results.  The particle filter runs every sequence as one row of one
+        padded program (the tails frozen by the step validity gate); the
+        exact-message and sampling paths loop over the sequences."""
+        if kind == "marginal" or num_samples is not None:
+            return [self._sub_sampler(i).predict(
+                target=target, kind=kind, pf=pf, N=N, squared=squared,
+                lag=lag, num_samples=num_samples, distr=distr, **kwargs)
+                for i in range(len(self.lengths))]
+        pf, fixed_lag, stat_fn, stat_dim = self._pf_predict_setup(
+            target, pf, lag, squared)
+        p = self._one_chain("predict")
+        obs = self.observations
+        T_max = obs.shape[1]
+        out = self._run_pf(p, obs, stat_fn, stat_dim, N, pf,
+                           step_valid=_step_valid(torch.as_tensor(
+                               self.lengths, device=self.device), obs),
+                           elementwise=True, window_length=T_max,
+                           fixed_lag=fixed_lag, **_pf_options(kwargs))
+        mean, cov = self._pf_stat_to_moments(
+            target, squared, p, out.mean_statistic.reshape(
+                len(self.lengths), T_max, -1))
+        mean, cov = mean.cpu().numpy(), cov.cpu().numpy()
+        return [(mean[i, :T_i], cov[i, :T_i])
+                for i, T_i in enumerate(self.lengths)]
+
+    def predictive_loglikelihood(self, num_sequences: int = -1,
+                                 num_steps_ahead: int = 5,
+                                 kind: str | None = None, N: int = 1000,
+                                 lag: int = 1, **kwargs):
+        """Sum of the per-sequence predictive log-likelihoods over
+        ``num_sequences`` sequences drawn without replacement (-1: all),
+        rescaled by T_total / T_chosen.  The particle filter runs the
+        chosen sequences as the rows of one padded program (the tails
+        frozen by the step validity gate and masked in the statistic by
+        each row's length); ``kind="marginal"`` loops over them."""
+        n_seq = len(self.lengths)
+        idx = np.arange(n_seq)
+        if num_sequences != -1:
+            seed = int(torch.randint(0, 2 ** 31, (), generator=self.generator,
+                                     device=self.device))
+            idx = np.random.default_rng(seed).choice(idx, num_sequences,
+                                                     replace=False)
+        scale = (float(self.lengths.sum()) / float(self.lengths[idx].sum())
+                 if num_sequences != -1 else 1.0)
+        if kind == "marginal":
+            total = sum(self._sub_sampler(int(i)).predictive_loglikelihood(
+                num_steps_ahead=num_steps_ahead, kind=kind, N=N, lag=lag,
+                **kwargs) for i in idx)
+            return total * scale
+        p = self._one_chain("predictive_loglikelihood")
+        stats, loglik = self._pf_predictive(
+            p, self.observations[torch.as_tensor(idx, device=self.device)],
+            num_steps_ahead, N, valid_length=torch.as_tensor(
+                self.lengths[idx], device=self.device), **kwargs)
+        out = stats.sum(0).cpu().numpy()
+        out[0] = float(loglik.sum())
+        return out * scale
 
 
 class SeqSVMSampler(SeqSampler):

@@ -47,6 +47,15 @@ StatisticFn = Callable
 Params = Any
 
 
+def horizon_mask(tk: int, T: int, valid_length, dtype):
+    """The predictive statistics' mask of horizon step ``tk``: 1 where it
+    lies inside the row, else 0; a float without ``valid_length``, else
+    ``[C, 1]`` from each row's ``valid_length [C]``."""
+    if valid_length is None:
+        return float(tk < T)
+    return (tk < valid_length).to(dtype)[:, None]
+
+
 def params_map(fn, *params):
     """Apply ``fn`` field by field over parameter dataclasses of one type
     (the port's ``jax.tree_util.tree_map``)."""

@@ -11,9 +11,9 @@ buffered-PF SGLD runs: parameters in the same unconstrained coordinates
 particle kernels over the 2-D state ``(x, sigma2)``, the chain-rule
 statistic, the prior (with the JAX package's Beta densities at ``(1+phi)/2``)
 and its gradient, the projection, data generation, and the fused-window
-bodies (plain PyTorch here, CUDA in ``csrc/garch_body.cuh``).  The
-sufficient statistic, the observation moments and the predictive
-statistic belong to the predict surface, which is not ported yet.
+bodies (plain PyTorch here, CUDA in ``csrc/garch_body.cuh``), the
+sufficient statistic and the predict surface: the latent (also squared)
+and observation moment maps and the k-step predictive statistic.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ from ..ops.cuda.fused_pf import FusedModel
 from ..utils.distributions import (beta_logpdf, invgamma_logpdf, sample_beta,
                                    sample_invgamma, sample_wishart,
                                    wishart_logpdf)
-from .base import ParticleKernel, params_map
+from .base import ParticleKernel, horizon_mask, params_map
 
 _LOG_2PI = 1.8378770664093453
 
@@ -239,6 +239,66 @@ def suff_statistic(params: GARCHParams, x_t, x_next, y_next, t):
     """Sufficient statistics (x', x'^2, x'^4) per particle, [C, N, 3]."""
     x1 = x_next[..., 0]
     return torch.stack([x1, x1 * x1, x1 ** 4], -1)
+
+
+# --------------------------------------------------------------------------
+# Predict surface; statistics [C, T, H] of C chains (or sequences).
+# --------------------------------------------------------------------------
+
+def latent_moments(params: GARCHParams, stats, squared: bool = False):
+    """Sufficient statistics [C, T, 3] -> latent (mean [C, T, 1], cov
+    [C, T, 1, 1]); ``squared`` gives the moments of x^2 instead (the data-
+    fit view)."""
+    if squared:
+        x_mean = stats[..., 1]
+        x_cov = stats[..., 2] - x_mean ** 2
+    else:
+        x_mean = stats[..., 0]
+        x_cov = stats[..., 1] - x_mean ** 2
+    return x_mean[..., None], x_cov[..., None, None]
+
+
+Y_STATISTIC_DIM = 2
+
+
+def y_statistic(params: GARCHParams, x_t, x_next, y_next, t):
+    """(x, x^2) features [C, N, 2] for the observation moments under
+    y = x + N(0, R)."""
+    x1 = x_next[..., 0]
+    return torch.stack([x1, x1 * x1], -1)
+
+
+def y_moments(params: GARCHParams, stats):
+    """[C, T, 2] (E[x], E[x^2]) -> (y_mean = E[x], y_cov = Var[x] + R)."""
+    x_mean = stats[..., 0]
+    y_cov = stats[..., 1] - x_mean ** 2 + params.R[:, None]
+    return x_mean[..., None], y_cov[..., None, None]
+
+
+def make_predictive_stat_fn(observations, num_steps_ahead: int, normals,
+                            valid_length=None):
+    """k-step-ahead predictive log-likelihood statistic [C, N, K+1]:
+    forward-simulate the particles through the prior kernel and score
+    y_{t+k} under N(x_pred, R).  ``observations [C, T, m]`` are the rows
+    the particle filter runs; ``normals [K+1, N, 1]`` are the prior
+    kernel's normals at each horizon, the same at every t and in every row
+    (the JAX package draws them from a fixed key); ``valid_length [C]``
+    masks the horizons past each row's end."""
+    T = observations.shape[-2]
+
+    def stat_fn(params, x_t, x_next, y_next, t):
+        R = params.R[:, None]
+        out = []
+        x_pred = x_next
+        for k in range(num_steps_ahead + 1):
+            diff = observations[:, min(t + k, T - 1), 0:1] - x_pred[..., 0]
+            ll = (-0.5 * diff * diff / R - 0.5 * _LOG_2PI
+                  - 0.5 * torch.log(R))
+            out.append(horizon_mask(t + k, T, valid_length, ll.dtype) * ll)
+            x_pred = _propose_prior(params, normals[k], x_pred, y_next)
+        return torch.stack(out, -1)
+
+    return stat_fn
 
 
 # --------------------------------------------------------------------------

@@ -12,9 +12,12 @@ statistics, the prior, its partial-prior gradient and the projection, the
 fused-window bodies (plain PyTorch here, CUDA in
 ``csrc/lgssm_body.cuh``), the exact Kalman oracle in float64 through
 ``ops/kalman.py``, the windowed marginal and complete-data gradients, the
-latent draws and moments, the conjugate Gibbs updates and the SGRLD
-preconditioner.  The vector model and the predict surface are not ported
-yet.
+latent draws and moments, the conjugate Gibbs updates, the SGRLD
+preconditioner and the predict surface: the exact observation moments
+and draws, prior simulation, and the particle filter's moment maps and
+k-step predictive statistic.  The predict functions follow the JAX
+package's general-n code; the parameters of the vector model (n, m > 1)
+are not ported yet (ROADMAP.md, Queue 1, slice 9b).
 """
 from __future__ import annotations
 
@@ -28,10 +31,10 @@ from ..ops import kalman
 from ..ops.cuda.fused_pf import FusedModel
 from ..utils.distributions import (matrix_normal_logpdf, sample_wishart,
                                    wishart_logpdf)
-from ..utils.linalg import (cholesky, inv, mat_to_tril_vector, solve,
-                            solve_upper, solve_vec, spectral_norm_projection,
-                            tril_vector_to_mat)
-from .base import ParticleKernel, params_map
+from ..utils.linalg import (cholesky, inv, logdet, mat_to_tril_vector,
+                            matmul, matvec, solve, solve_upper, solve_vec,
+                            spectral_norm_projection, tril_vector_to_mat)
+from .base import ParticleKernel, horizon_mask, params_map
 
 _LOG_2PI = 1.8378770664093453
 
@@ -270,6 +273,113 @@ def latent_var_sample(params: LGSSMParams, generator, observations,
     return x[..., 0, :, :] if num_samples == 1 else x
 
 
+def _noise_covariances(params: LGSSMParams):
+    """(Q [C, n, n], R [C, m, m]) from the Cholesky precision factors."""
+    LQinv, LRinv = params.LQinv, params.LRinv
+    return (inv(matmul(LQinv, LQinv.mT)), inv(matmul(LRinv, LRinv.mT)))
+
+
+def _observation_moments(params: LGSSMParams, x_mean, x_cov):
+    """Latent moments [C, T, n] / [C, T, n, n] -> observation moments:
+    y_mean = C x_mean, y_cov = C P C^T + R."""
+    Cm = params.C[:, None]                           # [C, 1, m, n]
+    _, R = _noise_covariances(params)
+    y_mean = matvec(Cm, x_mean)
+    y_cov = matmul(matmul(Cm, x_cov), Cm.mT) + R[:, None]
+    return y_mean, y_cov
+
+
+def y_distr(params: LGSSMParams, observations, lag=None,
+            forward_msg=None, backward_msg=None):
+    """Observation marginals per chain: (y_mean [C, T, m], y_cov
+    [C, T, m, m]) of the (lagged) latent marginals."""
+    return _observation_moments(params, *latent_var_distr(
+        params, observations, lag, forward_msg, backward_msg))
+
+
+def y_sample(params: LGSSMParams, generator, observations,
+             num_samples: int = 1, forward_msg=None, distr: str = "joint",
+             lag=None, normals=None, eps=None):
+    """Posterior-predictive draws of y_{0:T-1} per chain: latent draws
+    (:func:`latent_var_sample`, with its ``normals``) plus emission noise
+    (standard normals ``eps`` shaped like the output, else drawn from
+    ``generator``)."""
+    x = latent_var_sample(params, generator, observations, forward_msg,
+                          num_samples, distr=distr, lag=lag, normals=normals)
+    _, R = _noise_covariances(params)
+    Cm, LR = params.C, cholesky(R)
+    lead = (slice(None),) + (None,) * (x.dim() - 2)
+    if eps is None:
+        eps = torch.randn(x.shape[:-1] + (Cm.shape[-2],), generator=generator,
+                          dtype=x.dtype, device=x.device)
+    return matvec(Cm[lead], x) + matvec(LR[lead], eps)
+
+
+def _initial_moments(params: LGSSMParams, init_message):
+    msg = init_message or default_forward_message(params)
+    return solve_vec(msg.precision, msg.mean_precision), inv(msg.precision)
+
+
+def simulate_distr(params: LGSSMParams, T: int, init_message=None,
+                   include_init: bool = True) -> dict:
+    """Prior moment trajectories per chain from the initial message: dict
+    of latent and observation means ``[C, T+1, .]`` and covariances
+    ``[C, T+1, ., .]`` (T without the initial element)."""
+    A = params.A
+    Q, _ = _noise_covariances(params)
+    m0, P0 = _initial_moments(params, init_message)
+    mean = m0.expand(A.shape[:-1])
+    cov = P0.expand(A.shape)
+    means, covs = [mean], [cov]
+    for _ in range(T):
+        mean = matvec(A, mean)
+        cov = matmul(matmul(A, cov), A.mT) + Q
+        means.append(mean)
+        covs.append(cov)
+    means, covs = torch.stack(means, 1), torch.stack(covs, 1)
+    if not include_init:
+        means, covs = means[:, 1:], covs[:, 1:]
+    y_mean, y_cov = _observation_moments(params, means, covs)
+    return dict(latent_vars_mean=means, latent_vars_cov=covs,
+                obs_mean=y_mean, obs_cov=y_cov)
+
+
+def simulate_paths(params: LGSSMParams, generator, T: int,
+                   num_samples: int = 1, init_message=None,
+                   include_init: bool = True, normals=None) -> dict:
+    """Joint prior draws of (x, y) trajectories per chain: dict(latent_vars
+    [C, S, T+1, n], observations [C, S, T+1, m]), the sample axis dropped
+    for one sample and the initial element without ``include_init``.
+    ``normals = (z0 [C, S, n], zx [C, S, T, n], zy [C, S, T+1, m])``
+    replace the generator's draws."""
+    A, Cm = params.A, params.C
+    Q, R = _noise_covariances(params)
+    LQ, LR = cholesky(Q)[:, None], cholesky(R)[:, None, None]
+    m0, P0 = _initial_moments(params, init_message)
+    L0 = cholesky(P0)
+    C, n, m = A.shape[0], A.shape[-1], Cm.shape[-2]
+    if normals is None:
+        normals = tuple(torch.randn(shape, generator=generator,
+                                    dtype=A.dtype, device=A.device)
+                        for shape in ((C, num_samples, n),
+                                      (C, num_samples, T, n),
+                                      (C, num_samples, T + 1, m)))
+    z0, zx, zy = normals
+    x = m0 + matvec(L0, z0)                          # [C, S, n]
+    A_s = A[:, None]
+    xs = [x]
+    for t in range(T):
+        x = matvec(A_s, x) + matvec(LQ, zx[:, :, t])
+        xs.append(x)
+    xs = torch.stack(xs, 2)                          # [C, S, T+1, n]
+    ys = matvec(Cm[:, None, None], xs) + matvec(LR, zy)
+    if not include_init:
+        xs, ys = xs[:, :, 1:], ys[:, :, 1:]
+    if num_samples == 1:
+        xs, ys = xs[:, 0], ys[:, 0]
+    return dict(latent_vars=xs, observations=ys)
+
+
 def windowed_marginal_gradient(params: LGSSMParams, window, valid, weights,
                                B: int, S: int):
     """The buffered exact-gradient estimator over fixed-shape windows
@@ -482,6 +592,65 @@ def suff_statistic(params: LGSSMParams, x_t, x_next, y_next, t):
     """Gaussian sufficient statistics per particle, [C, N, 3]."""
     x0, x1 = x_t[..., 0], x_next[..., 0]
     return torch.stack([x1, x1 * x1, x0 * x1], -1)
+
+
+# --------------------------------------------------------------------------
+# The particle filter's predict surface: moment maps of elementwise-averaged
+# sufficient statistics [C, T, H], and the k-step predictive statistic.
+# --------------------------------------------------------------------------
+
+# the observation moments come from the latent ones: the observation
+# statistic is the sufficient statistic
+y_statistic = suff_statistic
+Y_STATISTIC_DIM = SUFF_STATISTIC_DIM
+
+def latent_moments(params: LGSSMParams, stats):
+    """Sufficient statistics [C, T, H] -> latent (x_mean [C, T, n], x_cov
+    [C, T, n, n])."""
+    n = params.A.shape[-1]
+    if n == 1:
+        return (stats[..., 0:1],
+                (stats[..., 1] - stats[..., 0] ** 2)[..., None, None])
+    x_mean = stats[..., :n]
+    second = stats[..., n:n + n * n].reshape(stats.shape[:-1] + (n, n))
+    return x_mean, second - x_mean[..., :, None] * x_mean[..., None, :]
+
+
+def y_moments(params: LGSSMParams, stats):
+    """Sufficient statistics [C, T, H] -> observation moments (y_mean = C
+    x_mean, y_cov = C P C^T + R) of the estimated latent moments."""
+    return _observation_moments(params, *latent_moments(params, stats))
+
+
+def make_predictive_stat_fn(observations, num_steps_ahead: int,
+                            normals=None, valid_length=None):
+    """k-step-ahead Gaussian predictive log-likelihood statistic
+    [C, N, K+1]: propagate each particle's moments through (A, Q) and
+    score y_{t+k} under N(C x_pred, C P_pred C^T + R).  The arguments are
+    those of :func:`~.svm.make_predictive_stat_fn`; this statistic is
+    exact and takes no ``normals``."""
+    T = observations.shape[-2]
+
+    def stat_fn(params, x_t, x_next, y_next, t):
+        A, Cm = params.A, params.C
+        Q, R = _noise_covariances(params)
+        m = Cm.shape[-2]
+        x_pred = x_next                                   # [C, N, n]
+        P_pred = torch.zeros_like(Q)
+        out = []
+        for k in range(num_steps_ahead + 1):
+            y_tk = observations[:, min(t + k, T - 1)]
+            diff = y_tk[:, None, :] - matvec(Cm[:, None], x_pred)
+            y_cov = R + matmul(matmul(Cm, P_pred), Cm.mT)     # [C, m, m]
+            sol = solve_vec(y_cov[:, None], diff)
+            ll = (-0.5 * (diff * sol).sum(-1) - 0.5 * m * _LOG_2PI
+                  - 0.5 * logdet(y_cov)[:, None])
+            out.append(horizon_mask(t + k, T, valid_length, ll.dtype) * ll)
+            x_pred = matvec(A[:, None], x_pred)
+            P_pred = Q + matmul(matmul(A, P_pred), A.mT)
+        return torch.stack(out, -1)
+
+    return stat_fn
 
 
 def unpack_grad(stat: torch.Tensor) -> LGSSMParams:

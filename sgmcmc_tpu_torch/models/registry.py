@@ -1,6 +1,7 @@
 """Uniform model adapter (counterpart of ``sgmcmc_tpu/models/registry.py``,
-with the fields the particle and exact-message scores, the steppers and
-Gibbs read, and the SVM, scalar LGSSM, GARCH and SVJM entries)."""
+with the fields the particle and exact-message scores, the steppers,
+Gibbs and the predict surface read, and the SVM, scalar LGSSM, GARCH and
+SVJM entries)."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,7 +42,19 @@ class ModelAPI:
     gradient_marginal_loglikelihood: Callable | None = None
     windowed_marginal_gradient: Callable | None = None
     windowed_complete_gradient: Callable | None = None
+    latent_var_sample: Callable | None = None
+    latent_var_distr: Callable | None = None
     gibbs_step: Callable | None = None
+    # the particle filter's predict surface: moment maps of elementwise-
+    # averaged statistics ((params, stats [C, T, H]) -> (mean, cov)), the
+    # observation statistic, and the k-step predictive statistic factory;
+    # the exact predictive log-likelihood (message passing)
+    latent_moments: Callable | None = None
+    y_statistic: Callable | None = None
+    y_statistic_dim: int = 0
+    y_moments: Callable | None = None
+    make_predictive_stat_fn: Callable | None = None
+    predictive_loglikelihood: Callable | None = None
 
 
 def _api(name: str, mod, prior_mean_var, **extra) -> ModelAPI:
@@ -54,7 +67,11 @@ def _api(name: str, mod, prior_mean_var, **extra) -> ModelAPI:
         project_parameters=mod.project_parameters,
         generate_data=mod.generate_data, prior_mean_var=prior_mean_var,
         get_fused=mod.get_fused, suff_statistic=mod.suff_statistic,
-        suff_statistic_dim=mod.SUFF_STATISTIC_DIM, **extra)
+        suff_statistic_dim=mod.SUFF_STATISTIC_DIM,
+        latent_moments=mod.latent_moments,
+        y_statistic=mod.y_statistic, y_statistic_dim=mod.Y_STATISTIC_DIM,
+        y_moments=mod.y_moments,
+        make_predictive_stat_fn=mod.make_predictive_stat_fn, **extra)
 
 
 def _stationary_prior(mod):
@@ -77,6 +94,9 @@ LGSSM = _api("lgssm_1_1", lgssm_mod,
                  lgssm_mod.gradient_marginal_loglikelihood),
              windowed_marginal_gradient=lgssm_mod.windowed_marginal_gradient,
              windowed_complete_gradient=lgssm_mod.windowed_complete_gradient,
+             latent_var_sample=lgssm_mod.latent_var_sample,
+             latent_var_distr=lgssm_mod.latent_var_distr,
+             predictive_loglikelihood=lgssm_mod.predictive_loglikelihood,
              gibbs_step=lgssm_mod.gibbs_step)
 GARCH = _api("garch", garch_mod, _stationary_prior(garch_mod))
 SVJM = _api("svjm", svjm_mod, _stationary_prior(svjm_mod))
@@ -94,6 +114,7 @@ def get_model(name: str, **kwargs) -> ModelAPI:
             return LGSSM
         raise NotImplementedError(
             f"lgssm with n={n}, m={m} is not ported yet: the port has the "
-            "scalar model (n = m = 1)")
+            "scalar model (n = m = 1); the vector model is ROADMAP.md, "
+            "Queue 1, slice 9b")
     raise NotImplementedError(f"model '{name}' with {kwargs} is not ported "
                               "yet")

@@ -9,18 +9,20 @@ Cholesky precisions LQinv_vec / LRinv_vec / LQJinv_vec and logit_pJ) with
 a leading chain axis, the two-component transition mixture, the bootstrap
 kernel with its mixture transition density, the Fisher-identity
 statistic, the prior and its gradient, the projection, data generation,
-and the fused-window body (plain PyTorch here, CUDA in
-``csrc/svjm_body.cuh``).  The EP / EP-avg proposals and the predict
-surface are not ported yet.
+the fused-window body (plain PyTorch here, CUDA in
+``csrc/svjm_body.cuh``), the EP and EP-avg proposals (unfused: no fused
+bundle) and the predict surface.
 
-The bootstrap kernel draws its jump from a second standard normal,
-``J = z_2 < ndtri(pJ)``, the fused body's rule, where the JAX package's
-unfused kernel draws ``uniform < pJ``; the two agree in law, and on
-``z_2 = ndtri(u)`` draw for draw (except on an exact tie).
+Every kernel draws its jump from a second standard normal: the bootstrap
+kernel ``J = z_2 < ndtri(pJ)`` (the fused body's rule), the EP kernels
+``J = z_2 < ndtri(x_pJ)`` with their fitted jump probability, where the
+JAX package draws ``uniform < p``; the two agree in law, and on ``z_2 =
+ndtri(u)`` draw for draw (except on an exact tie).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -31,7 +33,8 @@ from ..utils.distributions import (beta_logpdf, matrix_normal_logpdf,
                                    sample_beta, sample_wishart,
                                    wishart_logpdf)
 from ..utils.linalg import tril_vector_to_mat
-from .base import ParticleKernel, params_map
+from .base import ParticleKernel, horizon_mask, params_map
+from .svm import gauss_hermite
 
 _LOG_2PI = 1.8378770664093453
 # the clip of pJ before its jump threshold ndtri(pJ) in the fused body
@@ -198,14 +201,120 @@ KERNEL = ParticleKernel(sample_x0=_sample_x0, propose=_propose,
                         state_dim=1, noise_dim=2)
 
 
+# --------------------------------------------------------------------------
+# EP proposals: Gauss-Hermite fits of the two transition branches tilted by
+# the emission, and the two-component mixture proposal with the fitted jump
+# probability x_pJ.  EP fits every particle; EP-avg fits each chain once,
+# to the particle ensemble's predictive N(mean(x) A, var(x) A^2 + Q [+ QJ]).
+# Two normals per particle and step: the position and the jump.
+# --------------------------------------------------------------------------
+
+def _ep_branch_moments(mean, var, scaled_y2):
+    """GH moments of N(x'; mean, var) exp(-0.5 scaled_y2 e^{-x'} - x'/2)
+    for ``mean [C, M]``, ``var`` and ``scaled_y2 [C, 1]``: (log Z,
+    posterior mean, posterior variance), each [C, M]."""
+    nodes, weights = gauss_hermite(mean.dtype, mean.device)
+    xs = mean[..., None] + torch.sqrt(var)[..., None] * nodes   # [C, M, G]
+    log_tilt = (-0.5 * scaled_y2[..., None]
+                * torch.exp(torch.clamp(-xs, -60.0, 60.0))
+                - 0.5 * xs - 0.5 * _LOG_2PI)
+    lw = torch.log(weights) + log_tilt
+    m = lw.amax(-1, keepdim=True)
+    w = torch.exp(lw - m)
+    z = w.sum(-1)
+    logz = torch.log(z) + m[..., 0] - 0.5 * math.log(2 * math.pi)
+    m1 = (w * xs).sum(-1) / z
+    m2 = (w * xs * xs).sum(-1) / z
+    return logz, m1, torch.clamp(m2 - m1 * m1, min=1e-8)
+
+
+def _ep_from(params: SVJMParams, mean, base_var, y_next):
+    """The two branch fits at ``mean [C, M]`` and ``base_var [C, 1]`` and
+    the posterior jump probability x_pJ."""
+    scaled_y2 = (y_next[:, 0:1] * _col(params.lrinv)) ** 2
+    logz1, m1j, v1j = _ep_branch_moments(mean, base_var + _col(params.QJ),
+                                         scaled_y2)
+    logz0, m10, v10 = _ep_branch_moments(mean, base_var, scaled_y2)
+    x_pJ = torch.sigmoid(params.logit_pJ + logz1 - logz0)
+    return dict(xJ_bar=m1j, xJ_var=v1j, x_bar=m10, x_var=v10, x_pJ=x_pJ)
+
+
+def _ep_fit(params: SVJMParams, x_t, y_next):
+    """Per-particle fit, each [C, N]."""
+    return _ep_from(params, _col(params.a) * x_t[..., 0], _col(params.Q),
+                    y_next)
+
+
+def _ep_avg_fit(params: SVJMParams, x_t, y_next):
+    """One fit per chain, each [C, 1], from the mean and the variance
+    (ddof 0) of the chain's particles."""
+    x = x_t[..., 0]
+    a = _col(params.a)
+    mean = x.mean(-1, keepdim=True) * a
+    base_var = x.var(-1, correction=0, keepdim=True) * a ** 2 + _col(
+        params.Q)
+    return _ep_from(params, mean, base_var, y_next)
+
+
+def _ep_mixture_logq(fit, x1):
+    lq0 = (-0.5 * _LOG_2PI - 0.5 * torch.log(fit["x_var"])
+           - 0.5 * (x1 - fit["x_bar"]) ** 2 / fit["x_var"])
+    lq1 = (-0.5 * _LOG_2PI - 0.5 * torch.log(fit["xJ_var"])
+           - 0.5 * (x1 - fit["xJ_bar"]) ** 2 / fit["xJ_var"])
+    return torch.logaddexp(torch.log1p(-fit["x_pJ"]) + lq0,
+                           torch.log(fit["x_pJ"]) + lq1)
+
+
+def _ep_draw(fit, z):
+    """The mixture proposal [C, N, 1] with the jump z_2 < ndtri(x_pJ)."""
+    jump = (z[..., 1] < torch.special.ndtri(fit["x_pJ"])).to(z.dtype)
+    mean = jump * fit["xJ_bar"] + (1.0 - jump) * fit["x_bar"]
+    sd = torch.sqrt(jump * fit["xJ_var"] + (1.0 - jump) * fit["x_var"])
+    return (mean + sd * z[..., 0])[..., None]
+
+
+def _ep_weight(params: SVJMParams, fit, x_t, x_next, y_next):
+    return (_prior_log_density(params, x_t, x_next)
+            + _reweight(params, x_t, x_next, y_next)
+            - _ep_mixture_logq(fit, x_next[..., 0]))
+
+
+def _propose_ep(params: SVJMParams, z, x_t, y_next):
+    return _ep_draw(_ep_fit(params, x_t, y_next), z)
+
+
+def _reweight_ep(params: SVJMParams, x_t, x_next, y_next):
+    return _ep_weight(params, _ep_fit(params, x_t, y_next), x_t, x_next,
+                      y_next)
+
+
+def _propose_ep_avg(params: SVJMParams, z, x_t, y_next):
+    return _ep_draw(_ep_avg_fit(params, x_t, y_next), z)
+
+
+def _reweight_ep_avg(params: SVJMParams, x_t, x_next, y_next):
+    return _ep_weight(params, _ep_avg_fit(params, x_t, y_next), x_t, x_next,
+                      y_next)
+
+
+EP_KERNEL = ParticleKernel(
+    sample_x0=_sample_x0, propose=_propose_ep, reweight=_reweight_ep,
+    prior_log_density=_prior_log_density,
+    prior_log_density_max=_prior_log_density_max, state_dim=1, noise_dim=2)
+
+EP_AVG_KERNEL = ParticleKernel(
+    sample_x0=_sample_x0, propose=_propose_ep_avg,
+    reweight=_reweight_ep_avg, prior_log_density=_prior_log_density,
+    prior_log_density_max=_prior_log_density_max, state_dim=1, noise_dim=2)
+
+
 def get_kernel(name: str | None = None) -> ParticleKernel:
     if name in (None, "prior"):
         return KERNEL
-    if name in ("ep", "ep_avg"):
-        raise NotImplementedError(
-            f"SVJM kernel '{name}' (the Gauss-Hermite EP proposal) is not "
-            "ported yet (ROADMAP.md, Queue 1, slice 9: the other "
-            "proposals); the port runs the bootstrap kernel 'prior'")
+    if name == "ep":
+        return EP_KERNEL
+    if name == "ep_avg":
+        return EP_AVG_KERNEL
     raise ValueError(f"Unrecognized SVJM kernel '{name}'")
 
 
@@ -260,6 +369,59 @@ def suff_statistic(params: SVJMParams, x_t, x_next, y_next, t):
     3] (diagnostics and the particle filter's log-likelihood statistic)."""
     x0, x1 = x_t[..., 0], x_next[..., 0]
     return torch.stack([x1, x1 * x1, x0 * x1], -1)
+
+
+# --------------------------------------------------------------------------
+# Predict surface (the SVM's, with the jump-diffusion moment recursion
+# Var[x_{t+1}] = A^2 Var[x_t] + Q + pJ QJ); statistics [C, T, H].
+# --------------------------------------------------------------------------
+
+def latent_moments(params: SVJMParams, stats):
+    """Sufficient statistics [C, T, 3] -> latent (mean [C, T, 1], cov
+    [C, T, 1, 1])."""
+    x_mean = stats[..., 0]
+    x_cov = stats[..., 1] - x_mean ** 2
+    return x_mean[..., None], x_cov[..., None, None]
+
+
+Y_STATISTIC_DIM = 1
+
+
+def y_statistic(params: SVJMParams, x_t, x_next, y_next, t):
+    """E[exp(x)] feature [C, N, 1]; the emission is the SVM's."""
+    return torch.exp(torch.clamp(x_next[..., 0], -60.0, 60.0))[..., None]
+
+
+def y_moments(params: SVJMParams, stats):
+    """[C, T, 1] E[exp(x_t) | y] -> (0, R E[exp(x_t)])."""
+    return (torch.zeros_like(stats[..., :1]),
+            (params.R[:, None] * stats[..., 0])[..., None, None])
+
+
+def make_predictive_stat_fn(observations, num_steps_ahead: int, normals,
+                            valid_length=None):
+    """k-step-ahead predictive log-likelihood statistic [C, N, K+1]; the
+    arguments are those of :func:`~.svm.make_predictive_stat_fn`."""
+    T = observations.shape[-2]
+
+    def stat_fn(params, x_t, x_next, y_next, t):
+        a, R = params.a[:, None, None], params.R[:, None, None]
+        q_step = (params.Q + params.pJ * params.QJ)[:, None, None]
+        x_mean = x_next                                    # [C, N, 1]
+        x_var = torch.zeros_like(q_step)
+        out = []
+        for k in range(num_steps_ahead + 1):
+            y_tk = observations[:, min(t + k, T - 1), 0][:, None, None]
+            x_mc = x_mean + torch.sqrt(x_var) * normals[k]
+            y_var = R * torch.exp(x_mc)
+            ll = (-0.5 * y_tk ** 2 / y_var - 0.5 * _LOG_2PI
+                  - 0.5 * torch.log(y_var)).mean(-1)
+            out.append(horizon_mask(t + k, T, valid_length, ll.dtype) * ll)
+            x_mean = a * x_mean
+            x_var = q_step + a * a * x_var
+        return torch.stack(out, -1)
+
+    return stat_fn
 
 
 # --------------------------------------------------------------------------

@@ -6,13 +6,16 @@ Counterpart of the parts of ``sgmcmc_tpu/models/svm.py`` that buffered-PF
 SGLD runs: parameters in the same coordinates (A, packed Cholesky of the
 precisions LQinv_vec / LRinv_vec) with a leading chain axis, the bootstrap
 kernel with its transition density, the Fisher-identity statistic, the
-prior and its partial-prior gradient, the projection, and the fused-window
-body (plain PyTorch here, CUDA in ``csrc/svm_body.cuh``).  The Laplace /
-EP proposals and the predict surface are not ported yet.
+prior and its partial-prior gradient, the projection, the fused-window
+body (plain PyTorch here, CUDA in ``csrc/svm_body.cuh``), the adaptive
+Laplace and EP proposals (unfused: no fused bundle) and the predict
+surface: the latent and observation moment maps and the k-step predictive
+statistic.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -21,7 +24,7 @@ from ..ops.cuda.fused_pf import FusedModel
 from ..utils.distributions import (matrix_normal_logpdf, sample_wishart,
                                    wishart_logpdf)
 from ..utils.linalg import tril_vector_to_mat
-from .base import ParticleKernel, params_map
+from .base import ParticleKernel, horizon_mask, params_map
 
 _LOG_2PI = 1.8378770664093453
 
@@ -146,10 +149,106 @@ KERNEL = ParticleKernel(sample_x0=_sample_x0, propose=_propose,
                         state_dim=1, noise_dim=1)
 
 
+# --------------------------------------------------------------------------
+# Adaptive proposals.  Laplace: the mode of log p(x' | x, y') by a fixed
+# 10-iteration Newton solve (no early exit) and its curvature; EP: the
+# moments of p(x' | x, y') by 32-point Gauss-Hermite quadrature.  One
+# normal per particle and step, as the bootstrap kernel.
+# --------------------------------------------------------------------------
+
+_NEWTON_ITERS = 10
+_GH_POINTS = 32
+
+
+@functools.lru_cache(maxsize=None)
+def gauss_hermite(dtype, device):
+    """The probabilists' Gauss-Hermite nodes and weights (numpy's
+    ``hermegauss(32)``) as tensors, made once per dtype and device."""
+    nodes, weights = np.polynomial.hermite_e.hermegauss(_GH_POINTS)
+    return (torch.as_tensor(nodes, dtype=dtype, device=device),
+            torch.as_tensor(weights, dtype=dtype, device=device))
+
+
+def _laplace_mode(params: SVMParams, x_t, y_next):
+    """Mode [C, N] and proposal variance of x' -> log p(x'|x) +
+    log p(y'|x')."""
+    qinv, rinv = params.qinv[:, None], params.rinv[:, None]
+    mean = params.a[:, None] * x_t[..., 0]
+    y2r = (y_next[:, 0:1] ** 2) * rinv
+    mode = mean
+    for _ in range(_NEWTON_ITERS):
+        g = -(mode - mean) * qinv + 0.5 * y2r * torch.exp(-mode) - 0.5
+        h = -qinv - 0.5 * y2r * torch.exp(-mode)
+        mode = mode - g / h
+    h = -qinv - 0.5 * y2r * torch.exp(-mode)
+    return mode, -1.0 / h
+
+
+def _gaussian_log_q(x1, mean, var):
+    return -0.5 * _LOG_2PI - 0.5 * torch.log(var) - 0.5 * (x1 - mean) ** 2 / var
+
+
+def _propose_laplace(params: SVMParams, z, x_t, y_next):
+    mode, var = _laplace_mode(params, x_t, y_next)
+    return (mode + torch.sqrt(var) * z[..., 0])[..., None]
+
+
+def _reweight_laplace(params: SVMParams, x_t, x_next, y_next):
+    """w = p(x'|x) p(y'|x') / q(x'|x, y')."""
+    mode, var = _laplace_mode(params, x_t, y_next)
+    return (_prior_log_density(params, x_t, x_next)
+            + _reweight(params, x_t, x_next, y_next)
+            - _gaussian_log_q(x_next[..., 0], mode, var))
+
+
+def _ep_moments(params: SVMParams, x_t, y_next):
+    """Gauss-Hermite moment matching of p(x' | x, y'): (mean, variance)
+    [C, N]."""
+    nodes, gh_w = gauss_hermite(x_t.dtype, x_t.device)
+    mean = params.a[:, None] * x_t[..., 0]
+    sd = torch.sqrt(params.Q)[:, None, None]
+    xs = mean[..., None] + sd * nodes                      # [C, N, G]
+    y2 = (y_next[:, 0:1] ** 2)[..., None]
+    log_lik = (-0.5 * y2 * torch.exp(-xs) * params.rinv[:, None, None]
+               - 0.5 * xs)
+    w = gh_w * torch.exp(log_lik - log_lik.amax(-1, keepdim=True))
+    w = w / w.sum(-1, keepdim=True)
+    m1 = (w * xs).sum(-1)
+    m2 = (w * xs * xs).sum(-1)
+    return m1, torch.clamp(m2 - m1 * m1, min=1e-8)
+
+
+def _propose_ep(params: SVMParams, z, x_t, y_next):
+    m1, var = _ep_moments(params, x_t, y_next)
+    return (m1 + torch.sqrt(var) * z[..., 0])[..., None]
+
+
+def _reweight_ep(params: SVMParams, x_t, x_next, y_next):
+    m1, var = _ep_moments(params, x_t, y_next)
+    return (_prior_log_density(params, x_t, x_next)
+            + _reweight(params, x_t, x_next, y_next)
+            - _gaussian_log_q(x_next[..., 0], m1, var))
+
+
+LAPLACE_KERNEL = ParticleKernel(
+    sample_x0=_sample_x0, propose=_propose_laplace,
+    reweight=_reweight_laplace, prior_log_density=_prior_log_density,
+    prior_log_density_max=_prior_log_density_max, state_dim=1, noise_dim=1)
+
+EP_KERNEL = ParticleKernel(
+    sample_x0=_sample_x0, propose=_propose_ep, reweight=_reweight_ep,
+    prior_log_density=_prior_log_density,
+    prior_log_density_max=_prior_log_density_max, state_dim=1, noise_dim=1)
+
+
 def get_kernel(name: str | None = None) -> ParticleKernel:
     if name in (None, "prior"):
         return KERNEL
-    raise NotImplementedError(f"SVM kernel '{name}' is not ported yet")
+    if name == "laplace":
+        return LAPLACE_KERNEL
+    if name == "ep":
+        return EP_KERNEL
+    raise ValueError(f"Unrecognized SVM kernel '{name}'")
 
 
 # --------------------------------------------------------------------------
@@ -189,6 +288,68 @@ def suff_statistic(params: SVMParams, x_t, x_next, y_next, t):
     3] (the particle filter's log-likelihood statistic)."""
     x0, x1 = x_t[..., 0], x_next[..., 0]
     return torch.stack([x1, x1 * x1, x0 * x1], -1)
+
+
+# --------------------------------------------------------------------------
+# Predict surface.  The moment maps take elementwise-averaged statistics
+# [C, T, H] of C chains (or sequences) and return (mean [C, T, 1], cov
+# [C, T, 1, 1]).
+# --------------------------------------------------------------------------
+
+def latent_moments(params: SVMParams, stats):
+    """Sufficient statistics [C, T, 3] -> latent (mean, cov)."""
+    x_mean = stats[..., 0]
+    x_cov = stats[..., 1] - x_mean ** 2
+    return x_mean[..., None], x_cov[..., None, None]
+
+
+Y_STATISTIC_DIM = 1
+
+
+def y_statistic(params: SVMParams, x_t, x_next, y_next, t):
+    """E[exp(x)] feature [C, N, 1] for the observation moments under
+    y ~ N(0, exp(x) R)."""
+    return torch.exp(torch.clamp(x_next[..., 0], -60.0, 60.0))[..., None]
+
+
+def y_moments(params: SVMParams, stats):
+    """[C, T, 1] E[exp(x_t) | y] -> (y_mean 0 [C, T, 1], y_cov [C, T, 1, 1]
+    = R E[exp(x_t)]) by the law of total variance."""
+    return (torch.zeros_like(stats[..., :1]),
+            (params.R[:, None] * stats[..., 0])[..., None, None])
+
+
+def make_predictive_stat_fn(observations, num_steps_ahead: int, normals,
+                            valid_length=None):
+    """k-step-ahead predictive log-likelihood statistic [C, N, K+1]:
+    propagate the latent AR(1) moments k steps, average over the latent by
+    Monte Carlo and score y_{t+k} under N(0, exp(x) R).
+
+    ``observations [C, T, m]`` are the rows the particle filter runs (one
+    chain, or one padded sequence a row); ``normals [K+1, N, n_mc]`` are
+    the Monte Carlo draws, the same at every t and in every row (the JAX
+    package draws them from a fixed key); ``valid_length [C]`` masks the
+    horizons past each row's end (default: the whole row)."""
+    T = observations.shape[-2]
+
+    def stat_fn(params, x_t, x_next, y_next, t):
+        a = params.a[:, None, None]
+        Q, R = params.Q[:, None, None], params.R[:, None, None]
+        x_mean = x_next                                    # [C, N, 1]
+        x_var = torch.zeros_like(Q)
+        out = []
+        for k in range(num_steps_ahead + 1):
+            y_tk = observations[:, min(t + k, T - 1), 0][:, None, None]
+            x_mc = x_mean + torch.sqrt(x_var) * normals[k]
+            y_var = R * torch.exp(x_mc)
+            ll = (-0.5 * y_tk ** 2 / y_var - 0.5 * _LOG_2PI
+                  - 0.5 * torch.log(y_var)).mean(-1)
+            out.append(horizon_mask(t + k, T, valid_length, ll.dtype) * ll)
+            x_mean = a * x_mean
+            x_var = Q + a * a * x_var
+        return torch.stack(out, -1)
+
+    return stat_fn
 
 
 # --------------------------------------------------------------------------

@@ -7,6 +7,11 @@ Counterpart of ``sgmcmc_tpu/ops/pallas/resample.py`` over chain-batched
 ``_resample_kernel`` (K3), which compute the same function.  For CPU
 tensors it runs ``resample_apply_reference``, the plain PyTorch version.
 
+The kernel has two launches of one function: tiles of 1024 positions of a
+chain, and for wide rows (the predict surface's elementwise statistics,
+K in the thousands, on few chains) a grid over tiles of 8 positions and
+1024 columns that fills the card (:func:`is_wide`).
+
 One ancestor rule holds everywhere in the port:
 ``idx_i = #{j : cdf_j <= pos_i}`` (``searchsorted(side="right")``),
 clipped to N-1.
@@ -29,8 +34,9 @@ from .build import check_launch, load_library
 # modes select identically; they differ only in how a TPU computes the
 # selection, so every one of them runs `resample_apply` here.
 RESAMPLE_MODES = ("auto", "gather", "pallas", "pallas2", "xla", "xla2")
-# positions per block of csrc/resample_apply.cu (kTile)
-_TILE = 1024
+# positions per block of the wide launch of csrc/resample_apply.cu
+# (kWideRows; the other launch takes kTile = 1024)
+_WIDE_ROWS = 8
 
 
 def check_mode(mode: str) -> None:
@@ -104,6 +110,8 @@ def _library() -> ctypes.CDLL:
     lib.sgmcmc_resample_apply.restype = I
     lib.sgmcmc_resample_apply_max_shared_n.argtypes = []
     lib.sgmcmc_resample_apply_max_shared_n.restype = I
+    lib.sgmcmc_resample_apply_is_wide.argtypes = [I, I, I]
+    lib.sgmcmc_resample_apply_is_wide.restype = I
     return lib
 
 
@@ -111,6 +119,15 @@ def max_shared_n() -> int:
     """Largest N whose CDF the kernel keeps in shared memory; beyond it the
     kernel searches the CDF in device memory."""
     return _library().sgmcmc_resample_apply_max_shared_n()
+
+
+def is_wide(C: int, n: int, K: int, device=None) -> bool:
+    """Whether a call at (C, n, K) on ``device`` takes the kernel's wide
+    launch (rows of K >= 64 floats, with fewer tiles of 1024 positions than
+    the card has SMs): a grid over tiles of 8 positions and 1024 columns
+    of the row."""
+    with torch.cuda.device(device):
+        return bool(_library().sgmcmc_resample_apply_is_wide(C, n, K))
 
 
 def _check_inputs(pos, cdf, vals):
@@ -153,7 +170,7 @@ def resample_apply(pos: torch.Tensor, cdf: torch.Tensor,
         raise ValueError(f"no resample-apply for device {vals.device}")
     C, N, K = vals.shape
     n = pos.shape[1]
-    if C * -(-n // _TILE) >= 2 ** 31:
+    if C * -(-n // _WIDE_ROWS) >= 2 ** 31:
         raise ValueError(f"C={C}, n={n} needs more than 2^31 - 1 blocks")
     lib = _library()
     out = torch.empty((C, n, K), dtype=torch.float32, device=vals.device)

@@ -14,7 +14,9 @@ Counterpart of ``sgmcmc_tpu/ops/smoothers.py``:
 Every step resamples ``[particles | statistics]`` jointly with
 ``resample_rows`` (the resample-apply kernel for CUDA tensors; PaRIS
 resamples the particles only), applies the optional ESS gate, proposes and
-reweights.  The step consumes its randomness as inputs (proposal normals
+reweights.  With ``ElementwiseSlots`` the statistic is elementwise: step
+t adds its statistic to its own slot of a ``[length * dim]`` statistic.
+The step consumes its randomness as inputs (proposal normals
 ``z``, the resampling uniforms ``u`` and PaRIS's backward uniforms ``v``),
 so the same draws can drive the JAX package.  Two named exceptions to the
 JAX module: the backward indices are drawn by inverse CDF
@@ -56,6 +58,31 @@ class PFStepInput(NamedTuple):
     J: torch.Tensor | None = None
     # paris_ar: the generator of its accept-reject rounds
     generator: torch.Generator | None = None
+
+
+class ElementwiseSlots(NamedTuple):
+    """The elementwise statistic's layout: each chain's statistic is
+    ``length`` slots of ``dim``, and step ``t`` adds its statistic to slot
+    ``t - t1`` (clipped to the window) alone."""
+    t1: torch.Tensor            # [C] first in-window step of each chain
+    length: int
+    dim: int
+
+
+def _add_statistic(stats: torch.Tensor, inc: torch.Tensor, t: int,
+                   slots: ElementwiseSlots | None) -> torch.Tensor:
+    """``stats + inc``; with ``slots``, ``inc [C, ..., dim]`` is added to
+    step t's slot of ``stats [C, ..., length * dim]`` in place, and the
+    other slots are not written (the JAX package adds a one-hot product,
+    which gives the same numbers for a finite ``inc``)."""
+    if slots is None:
+        return stats + inc
+    C = stats.shape[0]
+    slot = (t - slots.t1).clamp(0, slots.length - 1)
+    cols = slot[:, None] * slots.dim + torch.arange(
+        slots.dim, device=stats.device)
+    cols = cols.reshape((C,) + (1,) * (inc.dim() - 2) + (slots.dim,))
+    return stats.scatter_add_(-1, cols.expand(inc.shape), inc)
 
 
 def _ess_gate(log_weights: torch.Tensor, ess_threshold: float | None):
@@ -108,7 +135,8 @@ def make_filter_step(kernel: ParticleKernel, stat_fn: StatisticFn,
                      resampler_name: str = "multinomial",
                      logsumexp_mode: bool = False,
                      resample_mode: str = "auto",
-                     ess_threshold: float | None = None):
+                     ess_threshold: float | None = None,
+                     slots: ElementwiseSlots | None = None):
     """Filtering accumulator step: statistics [C, H] += E[h_t | y_{<=t}];
     with ``logsumexp_mode``, += log E_w[exp(h_t)] per statistic
     dimension."""
@@ -123,9 +151,12 @@ def make_filter_step(kernel: ParticleKernel, stat_fn: StatisticFn,
             h = h * scale[..., None]
             m = h.amax(1)                                       # [C, H]
             inc = m + torch.log((torch.exp(h - m[:, None]) * probs).sum(1))
-            stats = carry.statistics + inc * inp.in_window[:, None]
+            inc = inc * inp.in_window[:, None]
         else:
-            stats = carry.statistics + scale * (h * probs).sum(1)
+            inc = scale * (h * probs).sum(1)
+        stats = _add_statistic(carry.statistics if slots is None
+                               else carry.statistics.clone(), inc, inp.t,
+                               slots)
         loglik = carry.loglik + inp.weight * inp.in_window * \
             _loglik_increment(log_w)
         return PFCarry(particles, log_w, stats, loglik)
@@ -137,7 +168,8 @@ def make_nemeth_step(kernel: ParticleKernel, stat_fn: StatisticFn,
                      lambduh: float = 0.95,
                      resampler_name: str = "multinomial",
                      resample_mode: str = "auto",
-                     ess_threshold: float | None = None):
+                     ess_threshold: float | None = None,
+                     slots: ElementwiseSlots | None = None):
     """Nemeth et al. (2015) O(N) shrinkage smoother step;
     ``lambduh = 1.0`` recovers Poyiadjis O(N).  The carried statistics are
     resampled jointly with the particles."""
@@ -151,11 +183,10 @@ def make_nemeth_step(kernel: ParticleKernel, stat_fn: StatisticFn,
             ess_threshold)
         h = stat_fn(params, parents, particles, inp.y, inp.t)   # [C, N, H]
         scale = (inp.weight * inp.in_window)[:, None, None]
-        if lambduh == 1.0:
-            stats = stats_anc + scale * h
-        else:
-            stats = (lambduh * stats_anc
-                     + (1.0 - lambduh) * S_bar[:, None, :] + scale * h)
+        if lambduh != 1.0:
+            stats_anc = (lambduh * stats_anc
+                         + (1.0 - lambduh) * S_bar[:, None, :])
+        stats = _add_statistic(stats_anc, scale * h, inp.t, slots)
         loglik = carry.loglik + inp.weight * inp.in_window * \
             _loglik_increment(log_w)
         return PFCarry(particles, log_w, stats, loglik)
@@ -210,7 +241,8 @@ def make_poyiadjis_n2_step(kernel: ParticleKernel, stat_fn: StatisticFn,
                            resampler_name: str = "multinomial",
                            resample_mode: str = "auto",
                            ess_threshold: float | None = None,
-                           bw_chunk: int | None = None):
+                           bw_chunk: int | None = None,
+                           slots: ElementwiseSlots | None = None):
     """Poyiadjis et al. (2011) O(N^2) smoother step:
     ``new_stats[i] = sum_j BW[i, j] * (stats[j] + h(x_j, x'_i))``.
 
@@ -234,7 +266,7 @@ def make_poyiadjis_n2_step(kernel: ParticleKernel, stat_fn: StatisticFn,
             h = stat_fn(params, x_t, x_next, inp.y, inp.t)      # [C, R*N, H]
             h_term = (bw[:, :, None, :]
                       @ h.reshape(C, x_next_c.shape[1], n, -1))[:, :, 0]
-            return smoothed + scale * h_term
+            return _add_statistic(smoothed, scale * h_term, inp.t, slots)
 
         stats = torch.cat([rows_to_stats(particles[:, r:r + rows])
                            for r in range(0, n, rows)], 1)
@@ -266,7 +298,8 @@ def _backward_indices(kernel: ParticleKernel, params, particles,
 
 
 def _rewired_statistics(stat_fn: StatisticFn, params, carry: PFCarry,
-                        new_particles, J, inp: PFStepInput):
+                        new_particles, J, inp: PFStepInput,
+                        slots: ElementwiseSlots | None = None):
     """PaRIS's update ``mean_k(stats[J_ik] + scale * h(x_{J_ik}, x'_i))``
     [C, N, H] from the previous carry and the backward indices J."""
     C, N, K = J.shape
@@ -278,7 +311,8 @@ def _rewired_statistics(stat_fn: StatisticFn, params, carry: PFCarry,
     x_next = new_particles.repeat_interleave(K, 1)             # [C, NK, D]
     h = stat_fn(params, x_J, x_next, inp.y, inp.t)             # [C, NK, H]
     scale = (inp.weight * inp.in_window)[:, None, None]
-    return (s_J + scale * h).reshape(C, N, K, -1).mean(2)
+    return _add_statistic(s_J, scale * h, inp.t, slots).reshape(
+        C, N, K, -1).mean(2)
 
 
 def _check_n_tilde(inp: PFStepInput, n_tilde: int) -> None:
@@ -293,7 +327,8 @@ def make_paris_step(kernel: ParticleKernel, stat_fn: StatisticFn,
                     resampler_name: str = "multinomial",
                     resample_mode: str = "auto",
                     ess_threshold: float | None = None,
-                    bw_chunk: int | None = None):
+                    bw_chunk: int | None = None,
+                    slots: ElementwiseSlots | None = None):
     """PaRIS (Olsson & Westerborn) step with exact backward sampling:
     ``n_tilde`` backward indices per particle from the normalised backward
     weights (``inp.J`` or the inverse CDF at ``inp.v``), streamed in row
@@ -309,7 +344,7 @@ def make_paris_step(kernel: ParticleKernel, stat_fn: StatisticFn,
                                   carry.log_weights, particles, inp.v,
                                   bw_chunk)
         stats = _rewired_statistics(stat_fn, params, carry, particles, J,
-                                    inp)
+                                    inp, slots)
         loglik = carry.loglik + inp.weight * inp.in_window * \
             _loglik_increment(log_w)
         return PFCarry(particles, log_w, stats, loglik)
@@ -389,7 +424,8 @@ def make_paris_ar_step(kernel: ParticleKernel, stat_fn: StatisticFn,
                        resample_mode: str = "auto",
                        max_accept_reject: int | None = None,
                        ess_threshold: float | None = None,
-                       bw_chunk: int | None = None):
+                       bw_chunk: int | None = None,
+                       slots: ElementwiseSlots | None = None):
     """PaRIS step with accept-reject backward sampling (O(N K) expected
     per round), its rounds drawn from ``inp.generator`` and its exact
     fallback at ``inp.v``."""
@@ -406,7 +442,7 @@ def make_paris_ar_step(kernel: ParticleKernel, stat_fn: StatisticFn,
             carry.log_weights, particles, inp.v, max_accept_reject,
             bw_chunk)
         stats = _rewired_statistics(stat_fn, params, carry, particles, J,
-                                    inp)
+                                    inp, slots)
         loglik = carry.loglik + inp.weight * inp.in_window * \
             _loglik_increment(log_w)
         return PFCarry(particles, log_w, stats, loglik)
@@ -421,27 +457,31 @@ def make_smoother_step(name: str, kernel: ParticleKernel,
                        logsumexp_mode: bool = False,
                        resample_mode: str = "auto",
                        ess_threshold: float | None = None,
-                       bw_chunk: int | None = None):
-    """Step function for the smoother ``name``."""
+                       bw_chunk: int | None = None,
+                       slots: ElementwiseSlots | None = None):
+    """Step function for the smoother ``name``; ``slots`` selects the
+    elementwise statistic layout."""
     get_resampler(resampler_name)
     if name == "filter":
         return make_filter_step(kernel, stat_fn, resampler_name,
-                                logsumexp_mode, resample_mode, ess_threshold)
+                                logsumexp_mode, resample_mode, ess_threshold,
+                                slots)
     if name == "nemeth":
         return make_nemeth_step(kernel, stat_fn, lambduh, resampler_name,
-                                resample_mode, ess_threshold)
+                                resample_mode, ess_threshold, slots)
     if name == "poyiadjis_N":
         return make_nemeth_step(kernel, stat_fn, 1.0, resampler_name,
-                                resample_mode, ess_threshold)
+                                resample_mode, ess_threshold, slots)
     if name == "poyiadjis_N2":
         return make_poyiadjis_n2_step(kernel, stat_fn, resampler_name,
-                                      resample_mode, ess_threshold, bw_chunk)
+                                      resample_mode, ess_threshold, bw_chunk,
+                                      slots)
     if name == "paris":
         return make_paris_step(kernel, stat_fn, n_tilde, resampler_name,
-                               resample_mode, ess_threshold, bw_chunk)
+                               resample_mode, ess_threshold, bw_chunk, slots)
     if name == "paris_ar":
         return make_paris_ar_step(kernel, stat_fn, n_tilde, resampler_name,
                                   resample_mode, max_accept_reject=None,
                                   ess_threshold=ess_threshold,
-                                  bw_chunk=bw_chunk)
+                                  bw_chunk=bw_chunk, slots=slots)
     raise ValueError(f"Unrecognized pf = '{name}'")

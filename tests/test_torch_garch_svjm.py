@@ -405,8 +405,8 @@ def test_fit_scan_on_cpu(name, kw):
 
 def test_registry_entries_and_unported_kernels():
     """garch and svjm in the registry with the JAX package's (0,
-    stationary variance) initial-state prior; the SVJM EP proposals
-    raise."""
+    stationary variance) initial-state prior; the SVJM EP proposals have
+    no fused bundle."""
     for name, mod, p in (
             ("garch", garch, garch.from_alpha_beta_gamma(0.1, 0.6, 0.2, 0.5)),
             ("svjm", svjm, svjm.from_scalars(0.9, 0.5, 1.0, 0.1, 2.0))):
@@ -417,8 +417,9 @@ def test_registry_entries_and_unported_kernels():
         assert float(pv) == float(mod.stationary_variance(p))
     assert registry.get_model("garch").get_fused("prior") is garch.FUSED_PRIOR
     assert registry.get_model("svjm").get_fused("ep") is None
-    for kind in ("ep", "ep_avg"):
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            svjm.get_kernel(kind)
+    assert svjm.get_kernel("ep") is svjm.EP_KERNEL
+    assert svjm.get_kernel("ep_avg") is svjm.EP_AVG_KERNEL
+    with pytest.raises(ValueError, match="Unrecognized"):
+        svjm.get_kernel("laplace")
     assert sgmcmc_tpu_torch.GARCHSampler is GARCHSampler
     assert sgmcmc_tpu_torch.SVJMSampler is SVJMSampler
