@@ -544,6 +544,33 @@ PREDICT_SHAPES = dict(
     predict_svm_n10000=(1, 10000, 1 + 3 * T),
     predict_seq=(len(SEQ_LENGTHS), 1000, 1 + 3 * max(SEQ_LENGTHS)),
     predict_garch_y=(1, 1000, 2 + 2 * T))
+# The wide rows' timing inputs.  Log-weights of spread 0.5 give an ESS of
+# exp(-0.25) = 78% of N, a particle filter's on an informative step (2.0
+# would leave 2%); multinomial positions then pick 58% of the rows as
+# ancestors (at most 1 - 1/e = 63% on equal weights), so the kernel reads
+# only those rows of vals.  Copies of vals, used in turn, keep the rows of
+# one call out of the card's 50 MB L2 at the next.
+WIDE_LOG_WEIGHT_SD, L2_BYTES = 0.5, 50e6
+
+
+def wide_row_inputs(gen, C, n, K, dev):
+    """(pos [C, n], cdf [C, n], copies of vals [C, n, K], the bytes a call
+    must move) for resample-apply at a wide row: pos and cdf read once,
+    each distinct ancestor's row of vals read once (a row of K >= 64
+    floats spans whole 32-byte sectors) and the output written once."""
+    from sgmcmc_tpu_torch.ops.cuda import resample
+    cdf = resample.weights_cdf(
+        WIDE_LOG_WEIGHT_SD * torch.randn((C, n), generator=gen, device=dev))
+    pos = torch.rand((C, n), generator=gen, device=dev)
+    vals = torch.randn((C, n, K), generator=gen, device=dev)
+    copies = max(1, -(-int(2 * L2_BYTES) // (8 * C * n * K)))
+    idx = resample.ancestors(pos, cdf)
+    rows = sum(int(idx[c].unique().numel()) for c in range(C))
+    nbytes = 4 * (pos.numel() + cdf.numel() + rows * K + C * n * K)
+    return pos, cdf, [vals] + [vals.clone() for _ in range(copies - 1)], \
+        nbytes
+
+
 # z: (rows, T, N) of the LGSSM's PF-against-Kalman check; fit: (chains, N,
 # iterations) of the proposals' fits
 PREDICT_SIZES = dict(T=T, N=1000, N_big=10000, seq=SEQ_LENGTHS,
@@ -573,13 +600,12 @@ def predict_phase(dev, card, sizes=PREDICT_SIZES):
         if cuda:
             torch.cuda.synchronize()
 
-    # (a) resample-apply at the wide rows, bitwise, then timed: host calls
-    # (CUDA events) and the device time alone (a CUDA graph of calls)
+    # (a) resample-apply at the wide rows, bitwise, then timed in both
+    # launches (the tiled one is the kernel before the wide launch): host
+    # calls (CUDA events) and the device time alone (a CUDA graph of calls)
     for label, (C, n_part, K) in sizes["shapes"].items():
-        lw = 2.0 * torch.randn((C, n_part), generator=gen, device=dev)
-        pos = torch.rand((C, n_part), generator=gen, device=dev)
-        vals = torch.randn((C, n_part, K), generator=gen, device=dev)
-        cdf = resample.weights_cdf(lw)
+        pos, cdf, vals_sets, nbytes = wide_row_inputs(gen, C, n_part, K, dev)
+        vals = vals_sets[0]
         out_k = resample.resample_apply(pos, cdf, vals)
         out_r = resample.resample_apply_reference(pos, cdf, vals)
         sync()
@@ -587,28 +613,43 @@ def predict_phase(dev, card, sizes=PREDICT_SIZES):
         row = dict(max_abs_err=float((out_k - out_r).abs().max()))
         msg = ""
         if cuda:
-            def kern():
-                return resample.resample_apply(pos, cdf, vals)
+            wide = resample.wide_launch(C, n_part, K, dev)
+            tiled_eq = bool(torch.equal(
+                resample._launch(pos, cdf, vals, wide=not wide), out_r))
+            same = same and tiled_eq
 
-            def plain():
-                return resample.resample_apply_reference(pos, cdf, vals)
-            reps = max(10, min(200, int(2e8 / (8 * C * n_part * K))))
-            nbytes = 4 * (pos.numel() + cdf.numel() + 2 * vals.numel())
+            def rotated(fn):
+                """fn over every copy of vals in turn, and the copies."""
+                return (lambda: [fn(pos, cdf, v) for v in vals_sets],
+                        len(vals_sets))
+
+            def per_call(timer, fn, reps):
+                call, k = rotated(fn)
+                return timer(call, reps) / k
+
+            reps = max(10, min(200, int(2e8 / (8 * C * n_part * K
+                                                 * len(vals_sets)))))
+            plain = resample.resample_apply_reference
             bnd, by = bound_ms(nbytes, C * n_part * (n_part.bit_length() + 1))
             # the plain version is the PyTorch call (torch.searchsorted +
             # torch.gather): timed twice
-            row.update(ms=graph_ms(kern, reps), plain_ms=graph_ms(plain, reps),
-                       library_ms=graph_ms(plain, reps), bound_ms=bnd,
-                       bound_by=by, host_ms=cuda_ms(kern, reps),
-                       plain_host_ms=cuda_ms(plain, reps),
-                       wide=resample.is_wide(C, n_part, K, dev))
-            msg = (f"; device time per call (CUDA graph) kernel "
-                   f"{row['ms']:.4f} ms, plain (searchsorted + gather) "
+            row.update(
+                ms=per_call(graph_ms, resample.resample_apply, reps),
+                plain_ms=per_call(graph_ms, plain, reps),
+                library_ms=per_call(graph_ms, plain, reps), bound_ms=bnd,
+                bound_by=by,
+                tiled_ms=per_call(graph_ms, lambda *a: resample._launch(
+                    *a, wide=False), reps),
+                host_ms=per_call(cuda_ms, resample.resample_apply, reps),
+                plain_host_ms=per_call(cuda_ms, plain, reps), wide=wide)
+            msg = (f"; {'wide' if wide else 'tiled'} launch; device time per "
+                   f"call (CUDA graph, {len(vals_sets)} copies of vals in "
+                   f"turn) kernel {row['ms']:.4f} ms, tiled launch "
+                   f"{row['tiled_ms']:.4f} ms, plain (searchsorted + gather) "
                    f"{row['plain_ms']:.4f} ms, bound {bnd:.4f} ms by {by} "
                    f"({nbytes / 1e6:.1f} MB, {bnd / row['ms']:.0%} of it); "
                    f"one host call {row['host_ms']:.4f} / "
-                   f"{row['plain_host_ms']:.4f} ms; wide launch "
-                   f"{row['wide']} ({card})")
+                   f"{row['plain_host_ms']:.4f} ms ({card})")
         out["resample_apply"][label] = row
         phase("22 resample-apply", f"{label}: C={C} N={n_part} K={K}: max "
               f"|kernel - plain| = {row['max_abs_err']!r}, bitwise equal "
@@ -616,7 +657,7 @@ def predict_phase(dev, card, sizes=PREDICT_SIZES):
         if not same:
             raise AssertionError(f"resample-apply differs from its plain "
                                  f"version at {label}")
-        del lw, pos, vals, cdf, out_k, out_r
+        del pos, vals, vals_sets, cdf, out_k, out_r
 
     # (b) every predict call of the slice, one chain, timed
     def timed(label, call, expect_ra, shape=None, key=None):

@@ -20,7 +20,12 @@ of ``chip_smoke.PREDICT_SHAPES``), the others the default and PaRIS paths'
 (K = 4, 6, 1).  Besides the CUDA-event time over a loop of host calls, a
 resample-apply line carries the device time per call in a CUDA graph
 (``graph_ms``, no host launch cost) and both times of ``torch.searchsorted``
-+ ``torch.gather`` (``gather_ms``, ``gather_graph_ms``).
++ ``torch.gather`` (``gather_ms``, ``gather_graph_ms``).  Rows of K >= 64
+take ``chip_smoke.wide_row_inputs`` (log-weights of spread 0.5, copies of
+vals used in turn, the bound over the ancestors' rows only) and also time
+both launches (``tiled_graph_ms``, ``wide_graph_ms``; ``wide`` is the one
+``resample_apply`` takes): spell out ``ra,C=256,N=1000,K=91`` and the like
+to find where they cross over.
 
 Shapes.  W=60 rows: C=8192 chains, N=1024, the buffered window of S=40,
 B=10 (zero weights on the 10-step buffers).  ``*_seq`` rows: the Seq SGLD
@@ -205,27 +210,53 @@ def main():
         if v["body"] == "ra":
             C, n, K = v["C"], v["N"], v["K"]
             gen = torch.Generator(device=dev).manual_seed(0)
-            cdf = resample.weights_cdf(
-                2.0 * torch.randn((C, n), generator=gen, device=dev))
-            pos = torch.rand((C, n), generator=gen, device=dev)
-            vals = torch.randn((C, n, K), generator=gen, device=dev)
+            if K >= 64:
+                pos, cdf, sets, nbytes = chip_smoke.wide_row_inputs(
+                    gen, C, n, K, dev)
+            else:
+                cdf = resample.weights_cdf(
+                    2.0 * torch.randn((C, n), generator=gen, device=dev))
+                pos = torch.rand((C, n), generator=gen, device=dev)
+                sets = [torch.randn((C, n, K), generator=gen, device=dev)]
+                nbytes = 4 * (pos.numel() + cdf.numel()
+                              + 2 * sets[0].numel())
 
-            def call():
-                return resample.resample_apply(pos, cdf, vals)
+            def over_sets(fn):
+                return lambda: [fn(pos, cdf, vals) for vals in sets]
 
-            def gather():
-                return resample.resample_apply_reference(pos, cdf, vals)
-            reps = max(10, min(200, int(2e8 / (8 * C * n * K))))
-            rounds = time_call(call, reps, args.rounds)
+            def graph(fn):
+                return (chip_smoke.graph_ms(over_sets(fn), reps=reps)
+                        / len(sets))
+
+            call = over_sets(resample.resample_apply)
+            reps = max(10, min(200, int(2e8 / (8 * C * n * K * len(sets)))))
+            rounds = [t / len(sets) for t in time_call(call, reps,
+                                                       args.rounds)]
+            gather = resample.resample_apply_reference
             extra = dict(
-                graph_ms=chip_smoke.graph_ms(call, reps=reps),
-                gather_ms=statistics.median(time_call(gather, reps,
-                                                      args.rounds)),
-                gather_graph_ms=chip_smoke.graph_ms(gather, reps=reps))
+                graph_ms=graph(resample.resample_apply),
+                gather_ms=statistics.median(time_call(
+                    over_sets(gather), reps, args.rounds)) / len(sets),
+                gather_graph_ms=graph(gather), copies=len(sets))
+            # both launches (a tree from before the launch choice moved
+            # to ops/cuda/resample.py times the one it takes)
+            if K >= 64 and hasattr(resample, "_launch"):
+                # both launches against the plain version before timing
+                ref = gather(pos, cdf, sets[0])
+                for wide in (False, True):
+                    got = resample._launch(pos, cdf, sets[0], wide=wide)
+                    if not torch.equal(got, ref):
+                        raise AssertionError(
+                            f"{name}: the {'wide' if wide else 'tiled'} "
+                            "launch differs from its plain version")
+                extra.update(
+                    wide=resample.wide_launch(C, n, K, dev),
+                    tiled_graph_ms=graph(lambda *a: resample._launch(
+                        *a, wide=False)),
+                    wide_graph_ms=graph(lambda *a: resample._launch(
+                        *a, wide=True)))
             shape = f"C={C} N={n} K={K}"
-            bound = chip_smoke.bound_ms(
-                4 * (pos.numel() + cdf.numel() + 2 * vals.numel()),
-                C * n * (n.bit_length() + 1))
+            bound = chip_smoke.bound_ms(nbytes, C * n * (n.bit_length() + 1))
         elif v["body"] == "philox":
             seeds = torch.randint(
                 -2 ** 63, 2 ** 63 - 1, (v["C"],), dtype=torch.int64,

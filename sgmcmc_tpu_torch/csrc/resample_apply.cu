@@ -39,14 +39,16 @@
 // an elementwise statistic with the particles: K = D + T * dim, 2,000-3,000
 // floats at T = 1000, for one chain (or one row per sequence).  There the
 // launch above is C * ceil(n / 1024) blocks, one block for one chain, which
-// copies 12 MB alone on a card of 132 SMs.  So when K >= kWideK and that
-// launch would leave SMs idle, the wide launch takes over: a grid of (C *
-// ceil(n / kWideRows)) x ceil(K / kWideCols) blocks, each of which finds
-// the ancestors of its kWideRows positions by binary search in the CDF in
-// device memory (one thread a position; the CDF stays in L2) and copies
-// those rows' kWideCols-column slice, every thread loading all its
-// kWideRows x kColsPerThread floats before it stores them (no division
-// per element, neighbouring threads on neighbouring columns).
+// copies 12 MB alone on a card of 132 SMs, one division per element.  The
+// wide launch, which the caller chooses (ops/cuda/resample.py), gives each
+// warp one position and a slice of kWideCols = 1024 columns of its row
+// (32 a lane), in a grid of (C * ceil(n / 8)) x ceil(K / 1024) blocks of 8
+// warps.  The warp finds its ancestor together: each level of the search
+// probes 32 evenly spaced CDF entries (one a lane, the CDF in L2) and
+// narrows the range to the gap the ballot of `cdf <= pos` ends in, so
+// N = 1000 takes two dependent loads, not ten.  Then every lane loads its
+// 32 floats before it stores them: no shared memory, no barrier, no
+// division per element, a lane's neighbours on neighbouring columns.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,13 +57,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 1024;            // positions per block
 constexpr size_t kSmemLimit = 232448;  // dynamic shared memory per block
-// the wide launch: rows of at least kWideK floats, kWideRows positions and
-// kWideCols = kThreads * kColsPerThread columns a block
-constexpr int kWideK = 64;
-constexpr int kWideRows = 8;
-constexpr int kColsPerThread = 4;
-constexpr int kWideCols = kThreads * kColsPerThread;
-constexpr int kMaxGridY = 65535;
+// the wide launch: a warp a position, kWideCols columns a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kLaneCols = 32;
+constexpr int kWideCols = 32 * kLaneCols;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 size_t shared_bytes(int N) {
   return kTile * sizeof(int) + static_cast<size_t>(N) * sizeof(float);
@@ -120,68 +120,61 @@ resample_apply_kernel(const float* __restrict__ pos,
   }
 }
 
+// The ancestor min(#{j : cdf[j] <= p}, N-1) of a warp's position p (the
+// same in every lane).  The answer lies in [lo, hi]; a level probes
+// lo + (l+1) * step - 1 in lane l, and the lanes whose probe is <= p form
+// a prefix of cnt lanes (the CDF is non-decreasing), so it lies in
+// [lo + cnt * step, lo + (cnt+1) * step - 1]; the last level probes every
+// entry of a range of at most 32.
+__device__ __forceinline__ int warp_ancestor(const float* cdf, int N,
+                                             float p, int lane) {
+  int lo = 0, hi = N;
+  int len = N;  // a bound on hi - lo
+  while (len > 32) {
+    const int step = (len + 31) / 32;
+    const int j = lo + (lane + 1) * step - 1;
+    const int cnt = __popc(__ballot_sync(kFullMask,
+                                         j < hi && cdf[j] <= p));
+    hi = min(hi, lo + (cnt + 1) * step - 1);
+    lo += cnt * step;
+    len = step - 1;
+  }
+  const int j = lo + lane;
+  return min(lo + __popc(__ballot_sync(kFullMask, j < hi && cdf[j] <= p)),
+             N - 1);
+}
+
 __global__ void __launch_bounds__(kThreads)
 resample_apply_wide_kernel(const float* __restrict__ pos,
                            const float* __restrict__ cdf,
                            const float* __restrict__ vals,
                            float* __restrict__ out, int n, int N, int K,
                            int row_tiles) {
-  __shared__ int sidx[kWideRows];
+  const int lane = threadIdx.x & 31;
   const int c = blockIdx.x / row_tiles;
-  const int i0 = (blockIdx.x - c * row_tiles) * kWideRows;
-  const int cnt = min(kWideRows, n - i0);
-  if (threadIdx.x < cnt) {
-    sidx[threadIdx.x] = ancestor(cdf + static_cast<size_t>(c) * N, N,
-                                 pos[static_cast<size_t>(c) * n + i0 +
-                                     threadIdx.x]);
-  }
-  __syncthreads();
-  const float* vals_c = vals + static_cast<size_t>(c) * N * K;
-  float* out_t = out + (static_cast<size_t>(c) * n + i0) * K;
-  const int k0 = blockIdx.y * kWideCols + threadIdx.x;
-  float v[kWideRows][kColsPerThread];
+  const int i = (blockIdx.x - c * row_tiles) * kWarps + (threadIdx.x >> 5);
+  if (i >= n) return;  // the whole warp: no barrier follows
+  const int a = warp_ancestor(cdf + static_cast<size_t>(c) * N, N,
+                              pos[static_cast<size_t>(c) * n + i], lane);
+  const float* src = vals + (static_cast<size_t>(c) * N + a) * K;
+  float* dst = out + (static_cast<size_t>(c) * n + i) * K;
+  const int k0 = blockIdx.y * kWideCols + lane;
+  float v[kLaneCols];
 #pragma unroll
-  for (int r = 0; r < kWideRows; ++r) {
-    const float* src = vals_c + static_cast<size_t>(sidx[r < cnt ? r : 0]) * K;
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int k = k0 + j * kThreads;
-      if (r < cnt && k < K) v[r][j] = src[k];
-    }
+  for (int j = 0; j < kLaneCols; ++j) {
+    const int k = k0 + 32 * j;
+    if (k < K) v[j] = src[k];
   }
 #pragma unroll
-  for (int r = 0; r < kWideRows; ++r) {
-    float* dst = out_t + static_cast<size_t>(r) * K;
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int k = k0 + j * kThreads;
-      if (r < cnt && k < K) dst[k] = v[r][j];
-    }
+  for (int j = 0; j < kLaneCols; ++j) {
+    const int k = k0 + 32 * j;
+    if (k < K) dst[k] = v[j];
   }
-}
-
-// The card's SM count (cached per device).
-int sm_count() {
-  static int counts[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (counts[dev] == 0) {
-    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
-  }
-  return counts[dev];
-}
-
-// True where the wide launch fills the card better: rows of at least
-// kWideK floats, and fewer blocks of the tiled launch than SMs.
-bool use_wide(int C, int n, int K) {
-  const long long tiled = static_cast<long long>(C) * ((n + kTile - 1) / kTile);
-  const int col_tiles = (K + kWideCols - 1) / kWideCols;
-  return K >= kWideK && col_tiles <= kMaxGridY && tiled < sm_count();
 }
 
 int launch_wide(const float* pos, const float* cdf, const float* vals,
                 float* out, int C, int n, int N, int K, void* stream) {
-  const int row_tiles = (n + kWideRows - 1) / kWideRows;
+  const int row_tiles = (n + kWarps - 1) / kWarps;
   const dim3 grid(C * row_tiles, (K + kWideCols - 1) / kWideCols);
   resample_apply_wide_kernel<<<grid, kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
@@ -218,21 +211,15 @@ int sgmcmc_resample_apply_max_shared_n(void) {
   return static_cast<int>((kSmemLimit - kTile * sizeof(int)) / sizeof(float));
 }
 
-// 1 when a call at (C, n, K) takes the wide launch on the calling thread's
-// current device, else 0.
-int sgmcmc_resample_apply_is_wide(int C, int n, int K) {
-  return use_wide(C, n, K) ? 1 : 0;
-}
-
 // Launches the resample-apply on `stream` of the calling thread's current
-// device (the caller selects it); returns cudaGetLastError().  The caller
-// ensures C, n, N, K >= 1 and C * ceil(n / 8) < 2^31.
+// device (the caller selects it), the wide launch when `wide` is nonzero,
+// else the tiled one; returns cudaGetLastError().  The caller ensures
+// C, n, N, K >= 1, C * ceil(n / 8) < 2^31 and, for the wide launch,
+// ceil(K / 1024) <= 65535.
 int sgmcmc_resample_apply(const float* pos, const float* cdf,
                           const float* vals, float* out, int C, int n,
-                          int N, int K, void* stream) {
-  if (use_wide(C, n, K)) {
-    return launch_wide(pos, cdf, vals, out, C, n, N, K, stream);
-  }
+                          int N, int K, int wide, void* stream) {
+  if (wide) return launch_wide(pos, cdf, vals, out, C, n, N, K, stream);
   if (shared_bytes(N) <= kSmemLimit) {
     return launch<true>(pos, cdf, vals, out, C, n, N, K, stream);
   }

@@ -22,7 +22,6 @@ import warnings
 import numpy as np
 import torch
 
-from ..models import lgssm as lgssm_mod
 from ..models.base import params_map
 from ..models.registry import ModelAPI, get_model
 from ..ops.buffered import run_buffered_pf
@@ -736,11 +735,10 @@ class Sampler:
             p, obs = self._exact_inputs("predict")
             if num_samples is not None:
                 fn = (m.latent_var_sample if target == "latent"
-                      else lgssm_mod.y_sample)
+                      else m.y_sample)
                 return fn(p, self.generator, obs, num_samples=num_samples,
                           distr=distr or "joint", lag=lag)[0].cpu().numpy()
-            fn = (m.latent_var_distr if target == "latent"
-                  else lgssm_mod.y_distr)
+            fn = m.latent_var_distr if target == "latent" else m.y_distr
             mean, cov = fn(p, obs, lag=lag)
             return mean[0].cpu().numpy(), cov[0].cpu().numpy()
         if num_samples is not None:
@@ -757,12 +755,10 @@ class Sampler:
         return mean[0].cpu().numpy(), cov[0].cpu().numpy()
 
     def _pf_predict_setup(self, target, pf, lag, squared):
-        """The PF predict contract, checked before the filter runs: (pf,
-        fixed lag, statistic, its dimension).  lag=0 needs the filter and
-        smoothing must not use it; ``squared`` is GARCH's."""
+        """The PF predict contract for a checked ``target``, before the
+        filter runs: (pf, fixed lag, statistic, its dimension).  lag=0 needs
+        the filter and smoothing must not use it; ``squared`` is GARCH's."""
         m = self.model
-        if target not in ("latent", "y"):
-            raise ValueError(f"Unrecognized target '{target}'")
         if pf is None:
             pf = "filter" if lag == 0 else "poyiadjis_N"
         if lag == 0 and pf != "filter":
@@ -846,8 +842,9 @@ class Sampler:
         of one chain's parameters."""
         p = (self.parameters if parameters is None
              else parameters.to(self.device))
+        m = self.model
         if return_distr or num_samples is not None:
-            if not self.model.name.startswith("lgssm"):
+            if m.simulate_distr is None:
                 raise NotImplementedError(
                     "distributional simulate supports the LGSSM")
             if p.num_chains != 1:
@@ -856,14 +853,13 @@ class Sampler:
                     f"{p.num_chains}; call select_chain(i) first")
             p = params_map(lambda x: x.double(), p)
             if return_distr:
-                out = lgssm_mod.simulate_distr(p, T,
-                                               include_init=include_init)
+                out = m.simulate_distr(p, T, include_init=include_init)
             else:
-                out = lgssm_mod.simulate_paths(
-                    p, self.generator, T, num_samples=num_samples,
-                    include_init=include_init)
+                out = m.simulate_paths(p, self.generator, T,
+                                       num_samples=num_samples,
+                                       include_init=include_init)
             return {k: v[0].cpu().numpy() for k, v in out.items()}
-        return self.model.generate_data(self.generator, p, T)
+        return m.generate_data(self.generator, p, T)
 
     # -- the JAX package's (and the reference's) method names ---------------
     def prior_init(self):
@@ -1041,6 +1037,8 @@ class SeqSampler(Sampler):
         results.  The particle filter runs every sequence as one row of one
         padded program (the tails frozen by the step validity gate); the
         exact-message and sampling paths loop over the sequences."""
+        if target not in ("latent", "y"):
+            raise ValueError(f"Unrecognized target '{target}'")
         if kind == "marginal" or num_samples is not None:
             return [self._sub_sampler(i).predict(
                 target=target, kind=kind, pf=pf, N=N, squared=squared,

@@ -44,6 +44,11 @@ class ModelAPI:
     windowed_complete_gradient: Callable | None = None
     latent_var_sample: Callable | None = None
     latent_var_distr: Callable | None = None
+    # the exact observation predict and prior trajectories (LGSSM)
+    y_distr: Callable | None = None
+    y_sample: Callable | None = None
+    simulate_distr: Callable | None = None
+    simulate_paths: Callable | None = None
     gibbs_step: Callable | None = None
     # the particle filter's predict surface: moment maps of elementwise-
     # averaged statistics ((params, stats [C, T, H]) -> (mean, cov)), the
@@ -96,6 +101,9 @@ LGSSM = _api("lgssm_1_1", lgssm_mod,
              windowed_complete_gradient=lgssm_mod.windowed_complete_gradient,
              latent_var_sample=lgssm_mod.latent_var_sample,
              latent_var_distr=lgssm_mod.latent_var_distr,
+             y_distr=lgssm_mod.y_distr, y_sample=lgssm_mod.y_sample,
+             simulate_distr=lgssm_mod.simulate_distr,
+             simulate_paths=lgssm_mod.simulate_paths,
              predictive_loglikelihood=lgssm_mod.predictive_loglikelihood,
              gibbs_step=lgssm_mod.gibbs_step)
 GARCH = _api("garch", garch_mod, _stationary_prior(garch_mod))

@@ -9,8 +9,8 @@ tensors it runs ``resample_apply_reference``, the plain PyTorch version.
 
 The kernel has two launches of one function: tiles of 1024 positions of a
 chain, and for wide rows (the predict surface's elementwise statistics,
-K in the thousands, on few chains) a grid over tiles of 8 positions and
-1024 columns that fills the card (:func:`is_wide`).
+K in the thousands) a warp a position and tiles of 1024 columns, which
+fill the card; :func:`wide_launch` chooses.
 
 One ancestor rule holds everywhere in the port:
 ``idx_i = #{j : cdf_j <= pos_i}`` (``searchsorted(side="right")``),
@@ -34,9 +34,16 @@ from .build import check_launch, load_library
 # modes select identically; they differ only in how a TPU computes the
 # selection, so every one of them runs `resample_apply` here.
 RESAMPLE_MODES = ("auto", "gather", "pallas", "pallas2", "xla", "xla2")
-# positions per block of the wide launch of csrc/resample_apply.cu
-# (kWideRows; the other launch takes kTile = 1024)
-_WIDE_ROWS = 8
+# positions and columns per block of the wide launch of
+# csrc/resample_apply.cu (kWarps, kWideCols; the tiled launch takes kTile
+# = 1024 positions)
+_WIDE_ROWS, _WIDE_COLS, _TILE = 8, 1024, 1024
+# Where the wide launch takes over, from the crossovers that
+# scripts/time_fused_window.py's resample-apply sweep measured on an H100
+# (PERF.md, section 6): it wins at every K >= 128, and at K >= 64 while
+# the tiled launch has fewer blocks than the card has SMs; below 128 on
+# more blocks the tiled launch's shared-memory search wins.
+_WIDE_K, _WIDE_K_ANY_C = 64, 128
 
 
 def check_mode(mode: str) -> None:
@@ -106,12 +113,10 @@ def _library() -> ctypes.CDLL:
     """The kernel library with the resample-apply entry points bound."""
     lib = load_library()
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.sgmcmc_resample_apply.argtypes = [P, P, P, P, I, I, I, I, P]
+    lib.sgmcmc_resample_apply.argtypes = [P, P, P, P, I, I, I, I, I, P]
     lib.sgmcmc_resample_apply.restype = I
     lib.sgmcmc_resample_apply_max_shared_n.argtypes = []
     lib.sgmcmc_resample_apply_max_shared_n.restype = I
-    lib.sgmcmc_resample_apply_is_wide.argtypes = [I, I, I]
-    lib.sgmcmc_resample_apply_is_wide.restype = I
     return lib
 
 
@@ -121,13 +126,16 @@ def max_shared_n() -> int:
     return _library().sgmcmc_resample_apply_max_shared_n()
 
 
-def is_wide(C: int, n: int, K: int, device=None) -> bool:
+def wide_launch(C: int, n: int, K: int, device) -> bool:
     """Whether a call at (C, n, K) on ``device`` takes the kernel's wide
-    launch (rows of K >= 64 floats, with fewer tiles of 1024 positions than
-    the card has SMs): a grid over tiles of 8 positions and 1024 columns
-    of the row."""
-    with torch.cuda.device(device):
-        return bool(_library().sgmcmc_resample_apply_is_wide(C, n, K))
+    launch (a warp a position, 1024 columns a block) rather than the tiled
+    one (a block a chain's 1024 positions)."""
+    if K < _WIDE_K:
+        return False
+    if K >= _WIDE_K_ANY_C:
+        return True
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return C * -(-n // _TILE) < sms
 
 
 def _check_inputs(pos, cdf, vals):
@@ -168,10 +176,24 @@ def resample_apply(pos: torch.Tensor, cdf: torch.Tensor,
         return resample_apply_reference(pos, cdf, vals)
     if vals.device.type != "cuda":
         raise ValueError(f"no resample-apply for device {vals.device}")
+    C, _, K = vals.shape
+    return _launch(pos, cdf, vals, wide_launch(C, pos.shape[1], K,
+                                               vals.device))
+
+
+resample_apply.launches = 0
+
+
+def _launch(pos, cdf, vals, wide: bool) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA inputs, the wide launch
+    when ``wide`` (:func:`resample_apply` chooses; timing scripts compare
+    the two)."""
     C, N, K = vals.shape
     n = pos.shape[1]
     if C * -(-n // _WIDE_ROWS) >= 2 ** 31:
         raise ValueError(f"C={C}, n={n} needs more than 2^31 - 1 blocks")
+    if wide and -(-K // _WIDE_COLS) > 65535:
+        raise ValueError(f"K={K} needs more than 65535 column tiles")
     lib = _library()
     out = torch.empty((C, n, K), dtype=torch.float32, device=vals.device)
     # the library's runtime launches on the thread's current device
@@ -179,13 +201,10 @@ def resample_apply(pos: torch.Tensor, cdf: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.sgmcmc_resample_apply(pos.data_ptr(), cdf.data_ptr(),
                                        vals.data_ptr(), out.data_ptr(),
-                                       C, n, N, K, stream)
+                                       C, n, N, K, int(wide), stream)
     check_launch(rc, "resample-apply")
     resample_apply.launches += 1
     return out
-
-
-resample_apply.launches = 0
 
 
 def resample_rows(u: torch.Tensor, log_weights: torch.Tensor,

@@ -537,6 +537,8 @@ def test_seq_predict_matches_jax():
     padded, smp = seq_case()
     n, T_max = 32, max(SEQ_LENGTHS)
     lengths = jnp.asarray(SEQ_LENGTHS, jnp.int32)
+    with pytest.raises(ValueError, match="Unrecognized target"):
+        smp.predict(target="x")
     for target, lag in (("latent", None), ("y", 2)):
         key = jax.random.PRNGKey(12)
         stats = jax_seq_predict(target, lag, n)(
@@ -592,6 +594,10 @@ def test_predict_contract():
         smp.predictive_loglikelihood(kind="marginal")
     with pytest.raises(NotImplementedError, match="LGSSM"):
         smp.simulate(5, return_distr=True)
+    for name in ("svm", "garch", "svjm"):
+        m = registry.get_model(name)
+        assert (m.latent_var_distr, m.y_distr, m.y_sample,
+                m.simulate_distr, m.simulate_paths) == (None,) * 5
     mean, cov = smp.latent_var_distr(N=8, lag=0)
     assert mean.shape == (12, 1) and cov.shape == (12, 1, 1)
     assert smp.y_distr(N=8)[1].shape == (12, 1, 1)

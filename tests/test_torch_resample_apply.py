@@ -177,3 +177,12 @@ def test_library_builds_every_kernel_source():
     pkg = build.CSRC_DIR.parent
     shipped = {p for g in globs for p in pkg.glob(g)}
     assert shipped == set(build.CSRC_DIR.glob("*.cu*"))
+
+
+@pytest.mark.parametrize("K,wide", [(1, False), (4, False), (6, False),
+                                    (63, False), (128, True), (3001, True)])
+def test_wide_launch_rule(K, wide):
+    """Rows narrower than 64 floats keep the tiled launch and rows of 128
+    or more take the wide one, on any number of chains (the band between
+    depends on the card's SM count, which needs the card)."""
+    assert resample.wide_launch(8192, 1024, K, "cuda") is wide
