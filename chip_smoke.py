@@ -164,6 +164,32 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      EP / EP-avg proposals through ``fit_scan("SGLD")`` (multinomial,
      N=1000, 8192 chains, 2 iterations: one resample-apply launch a
      window step, no K1), with their steps/s.
+ 23. the vector LGSSM (n = m = 2, the model of tests/test_pf_vs_kalman.py;
+     plain PyTorch around the resample-apply kernel, K1 being the scalar
+     model's): the kernel against its plain version, bitwise, at the
+     vector fit's carry (C=8192, N=1024, K = 2 + 14 = 16) and the vector
+     smoothed predict's rows (C=1, N=1000, K = 2 + 10 * 1000), timed
+     there beside ``searchsorted`` + ``gather`` and the bound;
+     ``Sampler(get_model("lgssm", n=2, m=2)).fit_scan("SGLD")`` at 8192
+     chains, N=1024, S=40, B=10, T=1000, multinomial and systematic, 20
+     timed iterations each (1200 resample-apply launches, no K1), with
+     steps/s and peak memory; the PF score (1024 chains, T=16, full
+     window) within |z| < 5 of the Kalman gradient; the windowed marginal
+     and complete gradients and a Gibbs sweep in float64 on the card
+     against the CPU on shared draws (normwise relative difference at
+     most 1e-9), the exact-kind fits and Gibbs sweeps finite with no
+     launch; SGRLD (the general preconditioner) finite; the PF smoothed
+     means (32 rows of T=200, N=1000) within |z| < 5 of the Kalman means;
+     one T=1000 predict call with its 1000 launches;
+ 24. the evaluation layer on phase 23's model: the IMQ KSD of a recorded
+     trace (exact scores) on the card against the CPU (relative
+     difference at most 1e-9), by ``imq_ksd`` and by ``compute_ksd`` over
+     the trace's list of parameters as the card holds them (every
+     field), ``convergence_summary`` of the stacked
+     trace, ``fit_evaluate`` with a ``SamplerEvaluator`` for 3 s of
+     sampler time (rows kept as dicts: this script imports neither pandas
+     nor matplotlib) and a checkpoint round trip (parameters and the
+     generator's state).
 The last three lines are the kernel report (JSON), the card's
 ``nvidia-smi`` name and power limit, and the result (JSON).
 Exits non-zero without a result when no CUDA device is available.
@@ -840,6 +866,426 @@ def predict_phase(dev, card, sizes=PREDICT_SIZES):
     seconds = time.perf_counter() - t_phase
     phase("22 seconds", f"{seconds:.1f} s")
     return out
+
+
+# Phase 23: the vector LGSSM (n = m = 2), the model of
+# tests/test_pf_vs_kalman.py, at the fits' full width.  Its resample-apply
+# calls carry [particles | statistics]: K = n + statistic_dim(2, 2) = 16
+# at 8192 chains and N=1024 in the fits, and the smoothed predict's
+# elementwise rows K = n + (n + 2 n^2) * T = 10002 at T=1000, N=1000.
+VECTOR_MATRICES = ([[0.7, 0.1], [0.0, 0.5]], [[1.0, 0.0], [0.0, 1.0]],
+                   [[0.5, 0.1], [0.1, 0.4]], [[0.6, 0.0], [0.0, 0.6]])
+VECTOR_SHAPES = dict(vector_fit=(C_BENCH, N, 2 + 14),
+                     vector_predict=(1, 1000, 2 + 10 * T))
+# fit: (chains, N, timed iterations); oracle: (chains, T); z: (rows, T,
+# N) of the PF smoothed moments against Kalman; exact: card-vs-CPU rows;
+# gibbs: chains; trace: (chains, N, iterations) of phase 24's trace
+VECTOR_SIZES = dict(T=T, fit=(C_BENCH, N, ITERS), oracle=(1024, 16),
+                    z=(32, 200, 1000), exact=1024, gibbs=256,
+                    trace=(64, 256, 20), predict_N=1000,
+                    shapes=VECTOR_SHAPES)
+
+
+def ancestor_rows(pos, cdf):
+    """The number of distinct ancestors over the rows of pos / cdf [C, n]
+    (a chain's distinct rows of vals that resample-apply reads)."""
+    from sgmcmc_tpu_torch.ops.cuda import resample
+    idx = resample.ancestors(pos, cdf).sort(1).values
+    return int(idx.shape[0] + (idx[:, 1:] != idx[:, :-1]).sum())
+
+
+def vector_phase(dev, card, sizes=VECTOR_SIZES):
+    """Phase 23 on ``dev`` (the CPU for a rehearsal at small ``sizes``):
+    resample-apply bitwise at the vector model's two new shapes, the
+    multinomial and systematic fits at full width through
+    ``Sampler(get_model("lgssm", n=2, m=2))`` (one resample-apply launch
+    a window step, no K1), the PF score against the exact Kalman
+    gradient, the exact kinds and Gibbs on the card against the CPU,
+    SGRLD, and the PF smoothed moments against the Kalman moments.
+    Returns the report's numbers and phase 24's trace."""
+    import numpy as np
+    from sgmcmc_tpu_torch import Sampler, get_model
+    from sgmcmc_tpu_torch.inference import samplers, sgmcmc
+    from sgmcmc_tpu_torch.models import lgssm
+    from sgmcmc_tpu_torch.models.base import params_map
+    from sgmcmc_tpu_torch.ops.cuda import fused_pf, resample
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    f64 = torch.float64
+    T_len = sizes["T"]
+    model = get_model("lgssm", n=2, m=2)
+    if model.get_fused is not None:
+        raise AssertionError("the vector LGSSM must not take K1")
+    truth = lgssm.from_matrices(*VECTOR_MATRICES, device=dev)
+    ys, _ = model.generate_data(gen, truth, T_len)
+    out = {"resample_apply": {}, "launches": {}}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def launches():
+        return (fused_pf.fused_window.launches,
+                resample.resample_apply.launches)
+
+    # (a) resample-apply at the two new shapes, bitwise, timed beside its
+    # plain version (torch.searchsorted + torch.gather, the PyTorch call)
+    for label, (C, n_part, K) in sizes["shapes"].items():
+        # weights at a filter's ESS and copies of vals used in turn past
+        # L2, as for phase 22's wide rows
+        cdf = resample.weights_cdf(WIDE_LOG_WEIGHT_SD * torch.randn(
+            (C, n_part), generator=gen, device=dev))
+        pos = torch.rand((C, n_part), generator=gen, device=dev)
+        vals = torch.randn((C, n_part, K), generator=gen, device=dev)
+        vals_sets = [vals] + [vals.clone() for _ in range(
+            -(-int(2 * L2_BYTES) // (8 * C * n_part * K)) - 1)]
+        out_k = resample.resample_apply(pos, cdf, vals)
+        out_r = resample.resample_apply_reference(pos, cdf, vals)
+        sync()
+        same = bool(torch.equal(out_k, out_r))
+        row = dict(max_abs_err=float((out_k - out_r).abs().max()))
+        msg = ""
+        if cuda:
+            # bytes: pos and cdf once, each distinct ancestor's row of vals
+            # once, the output once
+            nbytes = 4 * (pos.numel() + cdf.numel() + ancestor_rows(
+                pos, cdf) * K + C * n_part * K)
+            wide = resample.wide_launch(C, n_part, K, dev)
+
+            def per_call(timer, fn, reps):
+                return timer(lambda: [fn(pos, cdf, v) for v in vals_sets],
+                             reps) / len(vals_sets)
+            reps = max(10, min(200, int(2e8 / (8 * C * n_part * K
+                                                 * len(vals_sets)))))
+            plain = resample.resample_apply_reference
+            bnd, by = bound_ms(nbytes, C * n_part * (n_part.bit_length() + 1))
+            row.update(ms=per_call(graph_ms, resample.resample_apply, reps),
+                       plain_ms=per_call(graph_ms, plain, reps),
+                       library_ms=per_call(graph_ms, plain, reps),
+                       bound_ms=bnd, bound_by=by, wide=wide)
+            msg = (f"; {'wide' if wide else 'tiled'} launch; device time per "
+                   f"call (CUDA graph) kernel {row['ms']:.4f} ms, plain "
+                   f"(searchsorted + gather) {row['plain_ms']:.4f} / "
+                   f"{row['library_ms']:.4f} ms, bound {bnd:.4f} ms by {by} "
+                   f"({nbytes / 1e6:.1f} MB, {bnd / row['ms']:.0%} of it) "
+                   f"({card})")
+        out["resample_apply"][label] = row
+        phase("23 resample-apply", f"{label}: C={C} N={n_part} K={K}: max "
+              f"|kernel - plain| = {row['max_abs_err']!r}, bitwise equal "
+              f"{same}{msg}")
+        if not same:
+            raise AssertionError(f"resample-apply differs from its plain "
+                                 f"version at {label}")
+        del pos, cdf, vals, vals_sets, out_k, out_r
+
+    # (b) the fits at full width, multinomial (the default) and systematic
+    # (K1 being the scalar model's, both on the unfused smoother)
+    C_f, N_f, it_f = sizes["fit"]
+    fkw = dict(N=N_f, subsequence_length=S, buffer_length=B, epsilon=0.01)
+    for resampler in ("multinomial", "systematic"):
+        smp = Sampler(model, observations=ys, device=dev, seed=23)
+        smp.parameters = truth
+        smp.fit_scan("SGLD", num_iters=1, num_chains=C_f, record="none",
+                     resampler=resampler, **fkw)               # warm-up
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts(fused_pf, resample)
+        t0 = time.perf_counter()
+        _, aux = smp.fit_scan("SGLD", num_iters=it_f, record="none",
+                              return_aux=True, resampler=resampler, **fkw)
+        sync()
+        dt = time.perf_counter() - t0
+        got = launches()
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
+                else float("nan"))
+        p = smp.parameters
+        check_finite(f"the vector {resampler} fit", aux, p.A, p.LQinv_vec,
+                     p.LRinv_vec)
+        expect = (0, it_f * W)
+        phase("23 vector fit", f"Sampler(get_model('lgssm', n=2, m=2))."
+              f"fit_scan SGLD {resampler} C={C_f} N={N_f} S={S} B={B} on "
+              f"T={T_len}: {it_f} iterations in {dt:.3f} s = "
+              f"{C_f * it_f / dt:.1f} aggregate steps/s; (K1, "
+              f"resample-apply) launches {got}, expected {expect}; peak "
+              f"{peak:.3f} GiB; chain-mean A "
+              f"{p.A.mean(0).flatten().tolist()} ({card})")
+        if cuda and got != expect:
+            raise AssertionError(f"vector {resampler} fit launches {got}")
+        out["launches"].setdefault("vector_fit", got[1])
+        out[f"steps_{resampler}"] = C_f * it_f / dt
+
+    # (c) the PF score (multinomial, full window) against the exact
+    # gradient: z of the chain mean per coordinate
+    C_o, T_o = sizes["oracle"]
+    ys_o = ys[:T_o]
+    exact = lgssm.gradient_marginal_loglikelihood(truth, ys_o)
+    flat = lambda g: torch.cat([g.A.flatten(1), g.C.flatten(1),  # noqa
+                                g.LQinv_vec, g.LRinv_vec], 1).double()
+    rows = params_map(lambda x: x.expand((C_o,) + x.shape[1:]).contiguous(),
+                      truth)
+    score = sgmcmc.make_pf_score_fn(
+        model.get_kernel(), model.grad_statistic, model.grad_statistic_dim,
+        model.unpack_grad, sgmcmc.PFScoreConfig(n_particles=N_f,
+                                                resample_mode="auto"),
+        T_o, prior_mean_var_fn=model.prior_mean_var)
+    g, ll = score(gen, rows, ys_o)
+    f = flat(g)
+    check_finite("the vector oracle score", f, ll)
+    zval = (f.mean(0) - flat(exact)[0]) / (f.std(0) / C_o ** 0.5 + 1e-9)
+    phase("23 oracle", f"PF score (multinomial, N={N_f}, T={T_o}) over "
+          f"{C_o} chains against the exact gradient: max |z| over the 14 "
+          f"coordinates {float(zval.abs().max()):.3f}")
+    if not bool((zval.abs() < 5).all()):
+        raise AssertionError(f"vector PF score off the exact gradient: {zval}")
+
+    # (d) the exact kinds and Gibbs, float64, card against CPU on shared
+    # draws
+    R = sizes["exact"]
+    u = torch.rand((R, 4), generator=gen, dtype=f64, device=dev)
+    base = params_map(lambda x: x.double(), truth)
+    p_rows = lgssm.LGSSMParams(
+        A=base.A * (0.6 + 0.5 * u[:, 0, None, None]),
+        C=base.C.expand(R, 2, 2),
+        LQinv_vec=base.LQinv_vec * (0.7 + 0.6 * u[:, 1:2]),
+        LRinv_vec=base.LRinv_vec * (0.7 + 0.6 * u[:, 2:3]))
+    start = torch.randint(0, T_len - S + 1, (R,), generator=gen, device=dev)
+    start[:R // 8] = 0
+    idx = start[:, None] - B + torch.arange(W, device=dev)
+    from sgmcmc_tpu_torch.ops.subsequence import subsequence_weights
+    win = ys.double()[torch.clamp(idx, 0, T_len - 1)]
+    valid = ((idx >= 0) & (idx < T_len)).to(f64)
+    weights = subsequence_weights(start, S, T_len, dtype=f64)
+    z_ffbs = torch.randn((R, 2, W, 2), generator=gen, dtype=f64, device=dev)
+    z_comp = torch.randn((R, 2, 2), generator=gen, dtype=f64, device=dev)
+    C_g = sizes["gibbs"]
+
+    def draw(shape, chi2=False):
+        """Normals, or chi-square-sized values near T for the Bartlett
+        diagonals."""
+        if chi2:
+            return T_len + 3 * torch.rand(shape, generator=gen, dtype=f64,
+                                          device=dev)
+        return torch.randn(shape, generator=gen, dtype=f64, device=dev)
+    # FFBS normals, Q^-1's Bartlett diagonal and off-diagonal, A's
+    # normals, R^-1's diagonal and off-diagonal
+    gd = lgssm.GibbsDraws(draw((C_g, T_len, 2)), draw((C_g, 2), True),
+                          draw((C_g, 1)), draw((C_g, 2, 2)),
+                          draw((C_g, 2), True), draw((C_g, 1)))
+    prior64 = lgssm.default_prior(2, 2, dtype=f64, device=dev)
+
+    def exact_outputs(d):
+        to = lambda x: x.to(d)  # noqa: E731
+        p = params_map(to, p_rows)
+        gm, llm = lgssm.windowed_marginal_gradient(
+            p, to(win), to(valid), to(weights), B, S)
+        gc, llc = lgssm.windowed_complete_gradient(
+            p, to(win), to(valid), to(weights), B, S, num_samples=2,
+            normals=to(z_ffbs), completion=to(z_comp))
+        gp = params_map(lambda x: x[:C_g], p)
+        gib = lgssm.gibbs_step(
+            None, params_map(to, prior64), gp, to(ys.double()),
+            draws=lgssm.GibbsDraws(*[to(x) for x in gd[:6]]))
+        return [flat(gm), llm, flat(gc), llc, flat(gib)]
+    t0 = time.perf_counter()
+    on_card = exact_outputs(dev)
+    sync()
+    t_card = time.perf_counter() - t0
+    worst = max(float((a.cpu() - b).norm() / b.norm())
+                for a, b in zip(on_card, exact_outputs(torch.device("cpu"))))
+    check_finite("the vector exact paths", *on_card)
+    phase("23 exact card-cpu", f"float64 windowed marginal and complete "
+          f"gradients on {R} rows, a Gibbs sweep of {C_g} chains (T="
+          f"{T_len}): normwise relative |card - CPU| at most {worst:.3e} "
+          f"(bound 1e-9); card {t_card:.2f} s")
+    if not worst <= 1e-9:
+        raise AssertionError(f"vector exact paths card vs CPU {worst}")
+    for kind in ("marginal", "complete"):
+        ls = samplers.LGSSMSampler(ys, n=2, m=2, device=dev, seed=24)
+        reset_counts(fused_pf, resample)
+        tr = ls.fit_scan("SGLD", num_iters=2, num_chains=C_g, kind=kind,
+                         subsequence_length=S, buffer_length=B,
+                         epsilon=0.01)
+        check_finite(f"the vector {kind} fit", tr.A, tr.LQinv_vec)
+        if launches() != (0, 0):
+            raise AssertionError(f"{kind} fit launched {launches()}")
+    ls.select_chain(0)
+    sweeps = [ls.sample_gibbs() for _ in range(3)]
+    check_finite("the vector Gibbs sweeps", *[p.A for p in sweeps])
+
+    # (e) SGRLD on the vector model (the general preconditioner)
+    sg = Sampler(model, observations=ys, device=dev, seed=25)
+    sg.parameters = truth
+    reset_counts(fused_pf, resample)
+    tr = sg.fit_scan("SGRLD", num_iters=2, num_chains=C_g, epsilon=0.005,
+                     N=N_f, subsequence_length=S, buffer_length=B)
+    check_finite("the vector SGRLD fit", tr.A, tr.LQinv_vec, tr.LRinv_vec)
+    phase("23 SGRLD", f"fit_scan SGRLD C={C_g} N={N_f}, 2 iterations: "
+          f"finite; launches {launches()}; chain-mean A "
+          f"{tr.A[:, -1].mean(0).flatten().tolist()}")
+    if cuda and launches() != (0, 2 * W):
+        raise AssertionError(f"vector SGRLD launches {launches()}")
+
+    # (f) the PF smoothed moments against the Kalman moments (R rows of
+    # one padded program), then one full-size predict call with its
+    # launches (the K=10002 rows)
+    R_z, T_z, N_z = sizes["z"]
+    ys_z = ys[:T_z]
+    zs = samplers.SeqLGSSMSampler([ys_z] * R_z, n=2, m=2, device=dev,
+                                  seed=26)
+    zs.parameters = truth
+    pf = np.stack([m_ for m_, _ in zs.predict(N=N_z)])        # [R, T, 2]
+    mean_ex = lgssm.latent_var_distr(params_map(lambda x: x.double(), truth),
+                                     ys_z.double()[None])[0][0].cpu().numpy()
+    zz = (pf.mean(0) - mean_ex) / (pf.std(0, ddof=1) / R_z ** 0.5)
+    phase("23 smoothed moments", f"PF predict (N={N_z}, T={T_z}) over {R_z} "
+          f"rows against the Kalman smoothed means: max |z| over t and the "
+          f"2 coordinates {np.abs(zz).max():.3f}")
+    if not np.abs(zz).max() < 5:
+        raise AssertionError(f"vector PF smoothed moments: max |z| "
+                             f"{np.abs(zz).max()}")
+    sp = Sampler(model, observations=ys, device=dev, seed=27)
+    sp.parameters = truth
+    sp.predict(N=sizes["predict_N"])                            # warm-up
+    sync()
+    reset_counts(fused_pf, resample)
+    t0 = time.perf_counter()
+    mean, cov = sp.predict(N=sizes["predict_N"])
+    sync()
+    dt = time.perf_counter() - t0
+    got = launches()
+    if mean.shape != (T_len, 2) or cov.shape != (T_len, 2, 2) or not (
+            np.isfinite(mean).all() and np.isfinite(cov).all()):
+        raise AssertionError("the vector predict's output")
+    phase("23 predict", f"Sampler(vector).predict(N={sizes['predict_N']}), "
+          f"T={T_len}: {dt:.3f} s a call, (K1, resample-apply) launches "
+          f"{got} ({card})")
+    if cuda and got != (0, T_len):
+        raise AssertionError(f"vector predict launches {got}")
+    out["launches"]["vector_predict"] = got[1]
+
+    # phase 24's trace: a recorded multinomial fit
+    C_t, N_t, it_t = sizes["trace"]
+    st = Sampler(model, observations=ys, device=dev, seed=28)
+    st.parameters = truth
+    out["trace"] = st.fit_scan("SGLD", num_iters=it_t, num_chains=C_t,
+                               N=N_t, subsequence_length=S, buffer_length=B,
+                               epsilon=0.01, chain_init="prior")
+    out["model"], out["ys"], out["truth"] = model, ys, truth
+    phase("23 seconds", f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def evaluation_phase(dev, card, vec):
+    """Phase 24 on ``dev``: the evaluation layer on phase 23's vector
+    model and trace: the IMQ KSD on the card against the CPU, the
+    convergence summary, fit_evaluate with a SamplerEvaluator (rows as
+    dicts: no pandas here) and a checkpoint round trip."""
+    import os
+    import numpy as np
+    from sgmcmc_tpu_torch import Sampler
+    from sgmcmc_tpu_torch.io import checkpoint
+    from sgmcmc_tpu_torch.metrics import convergence, ksd
+    from sgmcmc_tpu_torch.metrics import metric_functions as mf
+    from sgmcmc_tpu_torch.models import lgssm
+    from sgmcmc_tpu_torch.models.base import params_map
+    t_phase = time.perf_counter()
+    model, ys, truth, trace = vec["model"], vec["ys"], vec["truth"], \
+        vec["trace"]
+    C_t, I_t = trace.A.shape[:2]
+
+    # (a) KSD of the trace's A (its last half), with exact scores
+    samples = params_map(lambda x: x[:, I_t // 2:].reshape(
+        (-1,) + x.shape[2:]), trace)
+    grad = lgssm.gradient_marginal_loglikelihood(samples, ys)
+    x = samples.A.reshape(samples.num_chains, -1).double()
+    g = grad.A.reshape(samples.num_chains, -1).double()
+    t0 = time.perf_counter()
+    k_card = float(ksd.imq_ksd(x, g, max_block_size=256, device=dev))
+    t_card = time.perf_counter() - t0
+    k_cpu = float(ksd.imq_ksd(x, g, max_block_size=256, device="cpu"))
+    rel = abs(k_card - k_cpu) / abs(k_cpu)
+    phase("24 KSD", f"IMQ KSD of A over {x.shape[0]} samples (the last half "
+          f"of {C_t} chains x {I_t} iterations) with exact scores: card "
+          f"{k_card!r}, CPU {k_cpu!r}, relative difference {rel:.3e} (bound "
+          f"1e-9); card {t_card:.3f} s")
+    if not (np.isfinite(k_card) and rel <= 1e-9):
+        raise AssertionError(f"KSD card vs CPU {k_card} {k_cpu}")
+    # the trace-level entry point, on the trace as the card holds it
+    plist, glist = checkpoint.unstack_trace(samples), \
+        checkpoint.unstack_trace(grad)
+    if plist[0].A.device != x.device:
+        raise AssertionError("the KSD trace is not where the fit left it")
+    names = ["A", "C", "LQinv_vec", "LRinv_vec"]
+    t0 = time.perf_counter()
+    per_card = ksd.compute_ksd(plist, glist, names, max_block_size=256,
+                               device=dev)
+    t_trace = time.perf_counter() - t0
+    per_cpu = ksd.compute_ksd(plist, glist, names, max_block_size=256,
+                              device="cpu")
+    rels = {v: abs(per_card[v] - per_cpu[v]) / abs(per_cpu[v])
+            for v in names}
+    phase("24 compute_ksd", f"compute_ksd over the list of {len(plist)} "
+          f"parameters on the card, per variable: " + ", ".join(
+              f"{v} {per_card[v]!r}" for v in names)
+          + f"; largest relative difference to the CPU "
+          f"{max(rels.values()):.3e} (bound 1e-9); A against imq_ksd "
+          f"{abs(per_card['A'] - k_card) / abs(k_card):.3e}; card "
+          f"{t_trace:.3f} s")
+    if not (all(np.isfinite(list(per_card.values())))
+            and max(rels.values()) <= 1e-9
+            and abs(per_card["A"] - k_card) <= 1e-9 * abs(k_card)):
+        raise AssertionError(f"compute_ksd card vs CPU {per_card} "
+                             f"{per_cpu}")
+
+    # (b) convergence summary of the stacked trace
+    rows = convergence.convergence_summary(trace)
+    if len(rows) != 4 + 4 + 3 + 3 or not all(
+            np.isfinite(r["ess"]) for r in rows):
+        raise AssertionError("convergence summary rows")
+    worst = max(rows, key=lambda r: r["rhat"])
+    phase("24 convergence", f"convergence_summary: {len(rows)} coordinates, "
+          f"largest split-R-hat {worst['rhat']:.3f} ({worst['variable']}; "
+          f"chains from the prior, {I_t} iterations)")
+
+    # (c) fit_evaluate: one chain, SGLD steps for a few seconds of sampler
+    # time, metrics every second, rows kept as dicts
+    smp = Sampler(model, observations=ys, device=dev, seed=29)
+    smp.parameters = truth
+    ev = smp.fit_evaluate(
+        "SGLD", max_time=3.0, epsilon=0.01, eval_freq=1.0,
+        metric_functions=[
+            mf.metric_function_parameters(truth, ["A", "C"], "mse"),
+            mf.noisy_logjoint_loglike_metric(N=N, subsequence_length=S,
+                                             buffer_length=B)],
+        sample_functions=[mf.sample_function_parameters(["A"])],
+        N=N, subsequence_length=S, buffer_length=B)
+    mrows = ev.metric_rows
+    if ev._metrics_df is not None or not all(np.isfinite(r["value"])
+                                             for r in mrows):
+        raise AssertionError("fit_evaluate rows")
+    last_ll = [r["value"] for r in mrows if r["metric"] == "loglikelihood"]
+    phase("24 fit_evaluate", f"SGLD (N={N}) for {ev.elapsed_time:.2f} s of "
+          f"sampler time: {ev.iteration} iterations, {len(mrows)} metric "
+          f"rows and {len(ev.sample_rows)} sample rows (no DataFrame); last "
+          f"loglikelihood row {last_ll[-1]:.2f}")
+
+    # (d) a checkpoint round trip of the fit's state
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "chip_smoke", "checkpoint.pkl")
+    checkpoint.save_checkpoint(path, parameters=smp.parameters,
+                               generator_state=smp.generator.get_state(),
+                               iteration=ev.iteration)
+    ck = checkpoint.load_checkpoint(path)
+    back = checkpoint.tree_to_torch(ck["parameters"], device=dev)
+    same = all(torch.equal(getattr(back, f), getattr(smp.parameters, f))
+               for f in ("A", "C", "LQinv_vec", "LRinv_vec"))
+    phase("24 checkpoint", f"save / load of the fit's parameters and "
+          f"generator state at iteration {ck['iteration']}: equal {same}")
+    if not same or ck["iteration"] != ev.iteration:
+        raise AssertionError("checkpoint round trip")
+    phase("24 seconds", f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def paris_phase(dev, card, sizes=PARIS_SIZES):
@@ -2307,6 +2753,11 @@ def main():
     # adaptive proposals
     predict = predict_phase(dev, card)
 
+    # 23. the vector LGSSM at full width (resample-apply at K=16 and
+    # K=10002) and 24. the evaluation layer on its trace
+    vec = vector_phase(dev, card)
+    evaluation_phase(dev, card, vec)
+
     main_shape = ra_times["K2b"]
     k1_tpu = "sgmcmc_tpu/ops/pallas/fused_pf.py:121"
 
@@ -2403,6 +2854,15 @@ def main():
            "launches": predict["launches"][label],
            **predict["resample_apply"][label]}
           for label in PREDICT_SHAPES],
+        # the same kernel on the vector LGSSM's fit (K = 16) and smoothed
+        # predict (K = 10002)
+        *[{"name": f"resample_apply_{label}", "route": "cuda",
+           "source": "sgmcmc_tpu_torch/csrc/resample_apply.cu",
+           "replaces": "sgmcmc_tpu/ops/pallas/resample.py:178 (K2a), "
+                       ":232 (K2b), :31 (K3)",
+           "launches": vec["launches"][label],
+           **vec["resample_apply"][label]}
+          for label in VECTOR_SHAPES],
         {"name": "philox_normals", "route": "cuda",
          "source": "sgmcmc_tpu_torch/csrc/philox_normals.cu",
          "replaces": "scripts/tpu_probe_kernel_rng.py:15",

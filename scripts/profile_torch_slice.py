@@ -4,7 +4,7 @@
     python3 scripts/profile_torch_slice.py [--chains 8192] [--iters 20]
         [--runs 7] [--resampler systematic|multinomial|stratified]
         [--particles 1024] [--rng host|kernel]
-        [--model svm|lgssm|garch|svjm] [--kernel optimal|prior]
+        [--model svm|lgssm|lgssm2|garch|svjm] [--kernel optimal|prior]
         [--kind pf|marginal|complete] [--gibbs]
         [--pf poyiadjis_N|paris|paris_ar|...] [--subsequence 40]
         [--iter-type SGLD|SGRLD|SGD|SGRD|ADAGRAD|SGLD-CV]
@@ -17,7 +17,11 @@ the JAX package's default resampler (the unfused path, one resample-apply
 launch per window step).  ``--rng kernel`` generates the fused window's
 normals on the card (the JAX headline's ``rng="kernel"``); ``--model``
 runs ``LGSSMSampler`` on the scalar LGSSM (true A=0.9, C=1, Q=0.5, R=1;
-start A=0.5, Q=1, R=2), ``GARCHSampler`` (true alpha=0.1, beta=0.6,
+start A=0.5, Q=1, R=2), the vector LGSSM (``lgssm2``:
+``LGSSMSampler(n=2, m=2)``, true A=[[0.7, 0.1], [0, 0.5]], C=I,
+Q=[[0.5, 0.1], [0.1, 0.4]], R=0.6 I; start A=0.5 I, Q=I, R=2 I; K1 is
+the scalar model's, so every resampler runs the unfused smoother),
+``GARCHSampler`` (true alpha=0.1, beta=0.6,
 gamma=0.2, R=0.5; start 0.2, 0.3, 0.3, 1) or ``SVJMSampler`` (true A=0.9,
 Q=0.5, R=1, pJ=0.1, QJ=2; start 0.5, 1, 2, 0.05, 1) instead, ``--kernel``
 selects the particle kernel, ``--pf`` the smoother (``paris`` /
@@ -108,7 +112,7 @@ def main():
     ap.add_argument("--particles", type=int, default=1024)
     ap.add_argument("--rng", default="host", choices=("host", "kernel"))
     ap.add_argument("--model", default="svm",
-                    choices=("svm", "lgssm", "garch", "svjm"))
+                    choices=("svm", "lgssm", "lgssm2", "garch", "svjm"))
     ap.add_argument("--kernel", default=None,
                     choices=("optimal", "prior", "laplace", "ep", "ep_avg"))
     ap.add_argument("--kind", default="pf",
@@ -130,11 +134,19 @@ def main():
         sys.exit("profile_torch_slice: no CUDA device is available")
     from sgmcmc_tpu_torch.inference import samplers
     from sgmcmc_tpu_torch.models import garch, lgssm, registry, svjm, svm
+
+    def vector_sampler(observations, **kw):
+        return samplers.LGSSMSampler(observations, n=2, m=2, **kw)
     cls, truth, start = {
         "svm": (samplers.SVMSampler, svm.from_scalars(0.9, 0.5, 1.0),
                 svm.from_scalars(0.5, 1.0, 2.0)),
         "lgssm": (samplers.LGSSMSampler, lgssm.from_scalars(0.9, 0.5, 1.0),
                   lgssm.from_scalars(0.5, 1.0, 2.0)),
+        "lgssm2": (vector_sampler, lgssm.from_matrices(
+            [[0.7, 0.1], [0.0, 0.5]], [[1.0, 0.0], [0.0, 1.0]],
+            [[0.5, 0.1], [0.1, 0.4]], [[0.6, 0.0], [0.0, 0.6]]),
+            lgssm.from_matrices(0.5 * torch.eye(2), torch.eye(2),
+                                torch.eye(2), 2.0 * torch.eye(2))),
         "garch": (samplers.GARCHSampler,
                   garch.from_alpha_beta_gamma(0.1, 0.6, 0.2, 0.5),
                   garch.from_alpha_beta_gamma(0.2, 0.3, 0.3, 1.0)),
@@ -150,8 +162,9 @@ def main():
     print(f"card: {card}")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    ys, _ = registry.get_model(args.model).generate_data(gen, truth.to(dev),
-                                                         T)
+    api = (registry.get_model("lgssm", n=2, m=2) if args.model == "lgssm2"
+           else registry.get_model(args.model))
+    ys, _ = api.generate_data(gen, truth.to(dev), T)
     sampler = cls(observations=ys, device="cuda", seed=2)
     sampler.parameters = start
     full = args.subsequence == -1

@@ -1,8 +1,8 @@
 """sgmcmc_tpu_torch — the PyTorch / CUDA port of ``sgmcmc_tpu``.
 
 Same package layout as the JAX package (``models/``, ``ops/``,
-``inference/``, ``utils/``), so every module's counterpart sits at the same
-path.  Tensors carry an explicit leading chain axis, randomness comes from
+``inference/``, ``utils/``, ``metrics/``, ``evaluation/``, ``io/``), so
+every module's counterpart sits at the same path.  Tensors carry an explicit leading chain axis, randomness comes from
 an explicit ``torch.Generator``, and the fused buffered particle-smoother
 window runs as a hand-written CUDA kernel (``ops/cuda/fused_pf.py``,
 sources in ``csrc/``) when its inputs live on a CUDA device.
@@ -24,6 +24,12 @@ _EXPORTS = {
     "SeqSVJMSampler": "sgmcmc_tpu_torch.inference.samplers",
     "SeqLGSSMSampler": "sgmcmc_tpu_torch.inference.samplers",
     "pack_sequences": "sgmcmc_tpu_torch.inference.samplers",
+    "sampler_for_model": "sgmcmc_tpu_torch.inference.samplers",
+    "ModelAPI": "sgmcmc_tpu_torch.models.registry",
+    "get_model": "sgmcmc_tpu_torch.models.registry",
+    "BaseEvaluator": "sgmcmc_tpu_torch.evaluation.evaluator",
+    "SamplerEvaluator": "sgmcmc_tpu_torch.evaluation.evaluator",
+    "OfflineEvaluator": "sgmcmc_tpu_torch.evaluation.evaluator",
 }
 
 __all__ = ["__version__", *_EXPORTS]

@@ -22,10 +22,11 @@ import warnings
 import numpy as np
 import torch
 
+from ..io.checkpoint import unstack_trace
 from ..models.base import params_map
 from ..models.registry import ModelAPI, get_model
 from ..ops.buffered import run_buffered_pf
-from ..utils.trace import unstack_trace
+from ..utils.profiling import sync
 from . import sgmcmc
 
 
@@ -152,7 +153,8 @@ class Sampler:
         if m.precondition is None:
             raise NotImplementedError(f"{m.name} has no preconditioner")
         return sgmcmc.Preconditioner(m.precondition, m.precondition_noise,
-                                     m.correction_term)
+                                     m.correction_term,
+                                     m.precondition_normals)
 
     def _score_key(self, **kwargs):
         """What else than the config and kernel selects the score."""
@@ -173,7 +175,8 @@ class Sampler:
                     f"{m.name} has no complete-data gradient path")
             return sgmcmc.make_marginal_score_fn(
                 m.windowed_complete_gradient, cfg, self.T, pass_draws=True,
-                num_samples=kwargs.get("num_samples", 1))
+                num_samples=kwargs.get("num_samples", 1),
+                state_dim=m.get_kernel(kernel_name).state_dim)
         if kind != "pf":
             raise ValueError(f"Unrecognized kind = '{kind}'")
         return sgmcmc.make_pf_score_fn(
@@ -434,6 +437,39 @@ class Sampler:
                     params_list, times = params_list[::2], times[::2]
                     stride *= 2
         return params_list, times
+
+    def fit_evaluate(self, iter_type: str, max_time: float,
+                     epsilon: float = 0.1, metric_functions=None,
+                     sample_functions=None, eval_freq: float = 5.0,
+                     steps_per_iteration: int = 1, **kwargs):
+        """Wall-clock-budgeted fit with an inline evaluator: the sampler's
+        clock counts the steps alone (each step's time up to the host read
+        of its parameters), the evaluation's is kept apart; the metric and
+        sample functions run every ``eval_freq`` seconds of sampler time
+        and once at the end.  Returns the
+        :class:`~..evaluation.evaluator.SamplerEvaluator`."""
+        from ..evaluation.evaluator import SamplerEvaluator
+        evaluator = SamplerEvaluator(self, metric_functions=metric_functions,
+                                     sample_functions=sample_functions)
+        step = self.get_iter_step(iter_type)
+        sampler_time = last_eval = 0.0
+        while sampler_time < max_time:
+            t0 = time.perf_counter()
+            for _ in range(steps_per_iteration):
+                step(epsilon, **kwargs)
+            sync(self.parameters)
+            sampler_time += time.perf_counter() - t0
+            evaluator.iteration += 1
+            evaluator.elapsed_time = sampler_time
+            if sampler_time - last_eval >= eval_freq:
+                evaluator.eval_metric_functions(self, evaluator.iteration,
+                                                time=sampler_time)
+                evaluator.eval_sample_functions(self, evaluator.iteration,
+                                                time=sampler_time)
+                last_eval = sampler_time
+        evaluator.eval_metric_functions(self, evaluator.iteration,
+                                        time=sampler_time)
+        return evaluator
 
     # -- multi-chain plumbing ----------------------------------------------
     def prior_chain_draws(self, num_chains: int, first=None):
@@ -930,10 +966,11 @@ class GibbsSamplerMixin:
 
 
 class LGSSMSampler(GibbsSamplerMixin, Sampler):
-    """Scalar linear-Gaussian state-space model (n = m = 1), with the exact
-    likelihood surface and blocked Gibbs."""
-    def __init__(self, observations=None, **kw):
-        super().__init__("lgssm", observations, **kw)
+    """Linear-Gaussian state-space model, with the exact likelihood surface
+    and blocked Gibbs: the scalar model by default, the vector one with
+    ``n`` (the state's size) and ``m`` (the observations')."""
+    def __init__(self, observations=None, n: int = 1, m: int = 1, **kw):
+        super().__init__(get_model("lgssm", n=n, m=m), observations, **kw)
 
 
 def pack_sequences(sequences):
@@ -1111,5 +1148,26 @@ class SeqGARCHSampler(SeqSampler):
 
 
 class SeqLGSSMSampler(SeqSampler):
-    def __init__(self, observations, **kw):
-        super().__init__("lgssm", observations, **kw)
+    def __init__(self, observations, n: int = 1, m: int = 1, **kw):
+        super().__init__(get_model("lgssm", n=n, m=m), observations, **kw)
+
+
+# the model names of the JAX package whose samplers are not ported yet
+_UNPORTED_SAMPLERS = {"gauss_hmm": "slice 12 (the HMM family)",
+                      "arphmm": "slice 12 (the HMM family)",
+                      "slds": "slice 13 (the SLDS)"}
+
+
+def sampler_for_model(model_name: str, **kwargs) -> Sampler:
+    """Model name -> sampler instance (the one dispatch point generic code
+    uses); ``kwargs`` go to the sampler's constructor."""
+    classes = {"svm": SVMSampler, "svjm": SVJMSampler,
+               "garch": GARCHSampler, "lgssm": LGSSMSampler}
+    if model_name in _UNPORTED_SAMPLERS:
+        raise NotImplementedError(
+            f"the {model_name} sampler is not ported yet (ROADMAP.md, "
+            f"Queue 1, {_UNPORTED_SAMPLERS[model_name]})")
+    if model_name not in classes:
+        raise ValueError(f"Unknown model '{model_name}' (choose from "
+                         f"{sorted([*classes, *_UNPORTED_SAMPLERS])})")
+    return classes[model_name](**kwargs)

@@ -395,10 +395,12 @@ class MarginalScore(nn.Module):
     """
 
     def __init__(self, windowed_fn, config: PFScoreConfig, T: int,
-                 pass_draws: bool = False, num_samples: int = 1):
+                 pass_draws: bool = False, num_samples: int = 1,
+                 state_dim: int = 1):
         super().__init__()
         self.windowed_fn, self.config, self.T = windowed_fn, config, T
         self.pass_draws, self.num_samples = pass_draws, num_samples
+        self.state_dim = state_dim
         S = config.subsequence_length
         self.full = (S == -1) or (S >= T)
         self.B = 0 if self.full else (T if config.buffer_length == -1
@@ -424,11 +426,11 @@ class MarginalScore(nn.Module):
     def _noise(self, generator, device, start, seq=None) -> ExactDraws:
         if not self.pass_draws:
             return ExactDraws(start, seq=seq)
-        R, K = start.shape[0], self.num_samples
-        # one normal per latent row and draw: the ported LGSSM is scalar
-        ffbs = torch.randn((R, K, self.W, 1), generator=generator,
+        R, K, n = start.shape[0], self.num_samples, self.state_dim
+        # n normals per latent row and draw
+        ffbs = torch.randn((R, K, self.W, n), generator=generator,
                            device=device)
-        completion = torch.randn((R, K, 1), generator=generator,
+        completion = torch.randn((R, K, n), generator=generator,
                                  device=device)
         return ExactDraws(start, ffbs, completion, seq)
 
@@ -559,12 +561,14 @@ def make_seq_pf_score_fn(kernel: ParticleKernel, stat_fn: StatisticFn,
 
 
 def make_marginal_score_fn(windowed_fn, config: PFScoreConfig, T: int,
-                           pass_draws: bool = False,
-                           num_samples: int = 1) -> MarginalScore:
+                           pass_draws: bool = False, num_samples: int = 1,
+                           state_dim: int = 1) -> MarginalScore:
     """Build the buffered exact-message score (see :class:`MarginalScore`);
     ``pass_draws`` gives the windowed function its random draws (the
-    complete kind's FFBS and completion normals)."""
-    return MarginalScore(windowed_fn, config, T, pass_draws, num_samples)
+    complete kind's FFBS and completion normals, ``state_dim`` a latent
+    row)."""
+    return MarginalScore(windowed_fn, config, T, pass_draws, num_samples,
+                         state_dim)
 
 
 def make_seq_marginal_score_fn(windowed_fn, config: PFScoreConfig, lengths,
@@ -598,11 +602,13 @@ def make_noisy_grad_fn(score_fn, grad_logprior_fn, T: int,
 class Preconditioner:
     """Riemannian preconditioner D(theta) as three functions of C chains:
     ``precondition(params, grad)`` (D grad), ``precondition_noise(params,
-    z)`` (sqrt(D) z for standard normals ``z`` shaped like the parameters)
-    and ``correction_term(params)`` (Gamma(theta))."""
+    z)`` (sqrt(D) z for standard normals ``z``, shaped like the parameters
+    unless ``noise_normals(generator, params)`` draws them) and
+    ``correction_term(params)`` (Gamma(theta))."""
     precondition: Callable
     precondition_noise: Callable
     correction_term: Callable
+    noise_normals: Callable | None = None
 
 
 def _normals_like(generator, params):
@@ -644,11 +650,13 @@ def sgrld_step(generator, params, observations, noisy_grad_fn,
     """Riemannian SGLD: theta += eps * (grad + Gamma / T) + sqrt(2 eps)
     sqrt(D) N(0, 1/T).  ``noisy_grad_fn`` must already apply
     ``preconditioner.precondition``; ``noise`` (standard normals shaped
-    like ``params``) replaces the generator's."""
+    like ``params``, or those of ``preconditioner.noise_normals``) replaces
+    the generator's."""
     grad, loglik = noisy_grad_fn(generator, params, observations, draws)
     scale = (1.0 / T) if is_scaled else 1.0
     if noise is None:
-        noise = _normals_like(generator, params)
+        noise = (preconditioner.noise_normals or _normals_like)(generator,
+                                                                params)
     noise = preconditioner.precondition_noise(params, noise)
     corr = preconditioner.correction_term(params)
     grad = params_map(lambda g, c: g + scale * c, grad, corr)

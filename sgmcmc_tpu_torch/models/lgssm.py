@@ -1,27 +1,37 @@
-"""Scalar linear-Gaussian state-space model (LGSSM), chain-batched port.
+"""Linear-Gaussian state-space model (LGSSM), chain-batched port.
 
-x_t = A x_{t-1} + N(0, Q),   y_t = C x_t + N(0, R),   n = m = 1.
+x_t = A x_{t-1} + N(0, Q),   y_t = C x_t + N(0, R),   x in R^n, y in R^m.
 
-Counterpart of the parts of ``sgmcmc_tpu/models/lgssm.py`` that
-buffered-PF SGLD, the exact-message scores and blocked Gibbs run, for the
-scalar model (the configuration of every reference experiment):
-parameters in the same coordinates (A, C, packed Cholesky of the
-precisions LQinv_vec / LRinv_vec) with a leading chain axis, the prior
-and locally optimal particle kernels, the Fisher-identity and sufficient
-statistics, the prior, its partial-prior gradient and the projection, the
-fused-window bodies (plain PyTorch here, CUDA in
-``csrc/lgssm_body.cuh``), the exact Kalman oracle in float64 through
-``ops/kalman.py``, the windowed marginal and complete-data gradients, the
-latent draws and moments, the conjugate Gibbs updates, the SGRLD
-preconditioner and the predict surface: the exact observation moments
-and draws, prior simulation, and the particle filter's moment maps and
-k-step predictive statistic.  The predict functions follow the JAX
-package's general-n code; the parameters of the vector model (n, m > 1)
-are not ported yet (ROADMAP.md, Queue 1, slice 9b).
+Counterpart of ``sgmcmc_tpu/models/lgssm.py``: parameters in the same
+coordinates (A, C, packed Cholesky of the precisions LQinv_vec /
+LRinv_vec) with a leading chain axis, the prior and locally optimal
+particle kernels, the Fisher-identity and sufficient statistics, the
+prior, its partial-prior gradient and the projection, the fused-window
+bodies (plain PyTorch here, CUDA in ``csrc/lgssm_body.cuh``; the scalar
+model only, as in the JAX package), the exact Kalman oracle in float64
+through ``ops/kalman.py``, the windowed marginal and complete-data
+gradients, the latent draws and moments, the conjugate Gibbs updates, the
+SGRLD preconditioner, data generation and the predict surface: the exact
+observation moments and draws, prior simulation, and the particle
+filter's moment maps and k-step predictive statistic.
+
+Every function is general in n and m.  The scalar model (n = m = 1, the
+configuration of every reference experiment) keeps its own elementwise
+code where the two differ in their operations: the kernels, the
+statistics, the prior's gradient and draw, the projection, the
+preconditioner and data generation, so that its numbers (and K1's bitwise
+checks against them) do not move.  Random draws are inputs where a test
+holds them against the JAX package: the kernels' normals (``[C, N, n]``),
+the Gibbs sweep's (:class:`GibbsDraws`), the prior draw's
+(:class:`PriorDraws`), data generation's and the preconditioner's noise.
+The associative-scan functions of the JAX module
+(``parallel_marginal_loglikelihood`` and its two companions) need
+``ops/kalman_parallel.py``, which is ROADMAP.md, Queue 1, slice 12.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -41,15 +51,27 @@ _LOG_2PI = 1.8378770664093453
 
 @dataclasses.dataclass
 class LGSSMParams:
-    """LGSSM parameters of C chains (JAX package coordinates)."""
-    A: torch.Tensor            # [C, 1, 1]
-    C: torch.Tensor            # [C, 1, 1]
-    LQinv_vec: torch.Tensor    # [C, 1] chol(Q^-1)
-    LRinv_vec: torch.Tensor    # [C, 1] chol(R^-1)
+    """LGSSM parameters of C chains (JAX package coordinates).  The
+    lower-case properties (``a``, ``c``, ``lqinv``, ``lrinv``, ``qinv``,
+    ``rinv``, ``Q``, ``R``) are the scalar model's [C] values; the
+    upper-case ``LQinv``, ``LRinv``, ``Qinv`` and ``Rinv`` are matrices of
+    any size."""
+    A: torch.Tensor            # [C, n, n]
+    C: torch.Tensor            # [C, m, n]
+    LQinv_vec: torch.Tensor    # [C, n(n+1)/2] chol(Q^-1), packed
+    LRinv_vec: torch.Tensor    # [C, m(m+1)/2] chol(R^-1), packed
 
     @property
     def num_chains(self) -> int:
         return self.A.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.A.shape[-1]
+
+    @property
+    def m(self) -> int:
+        return self.C.shape[-2]
 
     @property
     def a(self):
@@ -76,6 +98,16 @@ class LGSSMParams:
         return tril_vector_to_mat(self.LRinv_vec)
 
     @property
+    def Qinv(self):
+        L = self.LQinv
+        return L @ L.mT
+
+    @property
+    def Rinv(self):
+        L = self.LRinv
+        return L @ L.mT
+
+    @property
     def qinv(self):
         return self.lqinv ** 2
 
@@ -95,17 +127,32 @@ class LGSSMParams:
         return params_map(lambda x: x.to(device), self)
 
 
+def _is_scalar(params: LGSSMParams) -> bool:
+    """Whether ``params`` are the scalar model's (n = m = 1)."""
+    return params.A.shape[-1] == 1 and params.C.shape[-2] == 1
+
+
 def from_matrices(A, C, Q, R, dtype=torch.float32,
                   device=None) -> LGSSMParams:
-    """One chain's parameters from natural 1x1 (or scalar) A, C, Q, R."""
-    def leaf(v, shape):
-        return torch.as_tensor(np.asarray(v, np.float64).reshape(shape),
-                               dtype=dtype, device=device)
-    q = float(np.asarray(Q).reshape(()))
-    r = float(np.asarray(R).reshape(()))
-    return LGSSMParams(A=leaf(A, (1, 1, 1)), C=leaf(C, (1, 1, 1)),
-                       LQinv_vec=leaf(q ** -0.5, (1, 1)),
-                       LRinv_vec=leaf(r ** -0.5, (1, 1)))
+    """One chain's parameters from natural A [n, n], C [m, n], Q [n, n]
+    and R [m, m] (scalars for the scalar model)."""
+    A, C, Q, R = [np.atleast_2d(np.asarray(v, np.float64))
+                  for v in (A, C, Q, R)]
+
+    def leaf(v):
+        return torch.as_tensor(np.asarray(v)[None], dtype=dtype,
+                               device=device)
+    if A.shape == C.shape == (1, 1):
+        q, r = float(Q.reshape(())), float(R.reshape(()))
+        return LGSSMParams(A=leaf(A), C=leaf(C), LQinv_vec=leaf([q ** -0.5]),
+                           LRinv_vec=leaf([r ** -0.5]))
+
+    def packed_chol_inv(M):
+        L = np.linalg.cholesky(np.linalg.inv(M))
+        return L[np.tril_indices(L.shape[-1])]
+    return LGSSMParams(A=leaf(A), C=leaf(C),
+                       LQinv_vec=leaf(packed_chol_inv(Q)),
+                       LRinv_vec=leaf(packed_chol_inv(R)))
 
 
 def from_scalars(A: float, Q: float, R: float, C: float = 1.0,
@@ -116,20 +163,22 @@ def from_scalars(A: float, Q: float, R: float, C: float = 1.0,
 
 def params_from_jax(p, dtype=torch.float32) -> LGSSMParams:
     """Port parameters from a JAX ``LGSSMParams`` with numpy (or array)
-    leaves, single-chain ``(1, 1) / (1,)`` or stacked ``(C, 1, 1) / (C, 1)``
-    (scalar model only)."""
-    def conv(x, shape):
-        return torch.as_tensor(np.array(x, dtype=np.float64),
-                               dtype=dtype).reshape(shape)
-    return LGSSMParams(A=conv(p.A, (-1, 1, 1)), C=conv(p.C, (-1, 1, 1)),
-                       LQinv_vec=conv(p.LQinv_vec, (-1, 1)),
-                       LRinv_vec=conv(p.LRinv_vec, (-1, 1)))
+    leaves of any n, m: one chain's (``A [n, n]``, ``LQinv_vec [d]``) or
+    stacked (``A [C, n, n]``, ``LQinv_vec [C, d]``)."""
+    single = np.ndim(p.A) == 2
+
+    def conv(x):
+        a = np.array(x, dtype=np.float64)
+        return torch.as_tensor(a[None] if single else a, dtype=dtype)
+    return LGSSMParams(A=conv(p.A), C=conv(p.C), LQinv_vec=conv(p.LQinv_vec),
+                       LRinv_vec=conv(p.LRinv_vec))
 
 
 def stationary_variance(params: LGSSMParams, num_iters: int = 10):
     """Variance [C] of the JAX package's initial state for data
-    generation: Sigma <- A Sigma A^T + Q iterated from Q ``num_iters - 1``
-    times (its truncated stationary precision, inverted)."""
+    generation at n = 1: Sigma <- A Sigma A^T + Q iterated from Q
+    ``num_iters - 1`` times (its truncated stationary precision,
+    inverted)."""
     a2, q = params.a ** 2, params.Q
     sigma = q
     for _ in range(1, num_iters):
@@ -137,23 +186,52 @@ def stationary_variance(params: LGSSMParams, num_iters: int = 10):
     return sigma
 
 
-def generate_data(generator: torch.Generator, params: LGSSMParams, T: int):
-    """Simulate (observations [T, 1], latent [T, 1]) from chain 0 of
-    ``params`` on the generator's device."""
+def stationary_covariance(params: LGSSMParams, num_iters: int = 10):
+    """The same [C, n, n] for any n (the JAX package's
+    ``var_stationary_precision``, inverted)."""
+    Q, _ = _noise_covariances(params)
+    sigma = Q
+    for _ in range(1, num_iters):
+        sigma = params.A @ sigma @ params.A.mT + Q
+    return 0.5 * (sigma + sigma.mT)
+
+
+def generate_data(generator: torch.Generator, params: LGSSMParams, T: int,
+                  normals=None):
+    """Simulate (observations [T, m], latent [T, n]) from chain 0 of
+    ``params`` on the generator's device.  ``normals = (z0 [n], zx [T,
+    n], zy [T, m])`` replace the generator's draws (the vector model)."""
     p = params_map(lambda x: x[:1], params)
     dt, dev = p.A.dtype, p.A.device
-    x = torch.sqrt(stationary_variance(p)) * torch.randn(
-        (1,), generator=generator, dtype=dt, device=dev)
-    zx = torch.randn((T,), generator=generator, dtype=dt, device=dev)
-    zy = torch.randn((T,), generator=generator, dtype=dt, device=dev)
-    sq_q, sq_r = torch.sqrt(p.Q), torch.sqrt(p.R)
+    if _is_scalar(p) and normals is None:
+        x = torch.sqrt(stationary_variance(p)) * torch.randn(
+            (1,), generator=generator, dtype=dt, device=dev)
+        zx = torch.randn((T,), generator=generator, dtype=dt, device=dev)
+        zy = torch.randn((T,), generator=generator, dtype=dt, device=dev)
+        sq_q, sq_r = torch.sqrt(p.Q), torch.sqrt(p.R)
+        xs = []
+        for t in range(T):
+            x = p.a * x + sq_q * zx[t]
+            xs.append(x)
+        xs = torch.cat(xs)
+        ys = p.c * xs + sq_r * zy
+        return ys[:, None], xs[:, None]
+    n, m = p.n, p.m
+    if normals is None:
+        normals = [torch.randn(shape, generator=generator, dtype=dt,
+                               device=dev) for shape in ((n,), (T, n),
+                                                         (T, m))]
+    z0, zx, zy = [torch.as_tensor(z, dtype=dt, device=dev) for z in normals]
+    Q, R = _noise_covariances(p)
+    LQ, LR = cholesky(Q)[0], cholesky(R)[0]
+    A = p.A[0]
+    x = cholesky(stationary_covariance(p))[0] @ z0
     xs = []
     for t in range(T):
-        x = p.a * x + sq_q * zx[t]
+        x = A @ x + LQ @ zx[t]
         xs.append(x)
-    xs = torch.cat(xs)
-    ys = p.c * xs + sq_r * zy
-    return ys[:, None], xs[:, None]
+    xs = torch.stack(xs)
+    return xs @ p.C[0].mT + zy @ LR.mT, xs
 
 
 # --------------------------------------------------------------------------
@@ -164,11 +242,13 @@ def generate_data(generator: torch.Generator, params: LGSSMParams, T: int):
 # --------------------------------------------------------------------------
 
 def default_forward_message(params: LGSSMParams) -> kalman.GaussianMessage:
-    return kalman.init_forward_message(1, params.A.dtype, params.A.device)
+    return kalman.init_forward_message(params.n, params.A.dtype,
+                                       params.A.device)
 
 
 def default_backward_message(params: LGSSMParams) -> kalman.GaussianMessage:
-    return kalman.init_backward_message(1, params.A.dtype, params.A.device)
+    return kalman.init_backward_message(params.n, params.A.dtype,
+                                        params.A.device)
 
 
 def _mats(params: LGSSMParams):
@@ -231,7 +311,7 @@ def predictive_loglikelihood(params: LGSSMParams, observations, lag: int = 1,
 def latent_var_distr(params: LGSSMParams, observations, lag=None,
                      forward_msg=None, backward_msg=None):
     """Marginals p(x_t | y_{<= t+lag}), smoothed for ``lag=None``:
-    (mean [C, T, 1], cov [C, T, 1, 1])."""
+    (mean [C, T, n], cov [C, T, n, n])."""
     fwd = forward_msg or default_forward_message(params)
     bwd = backward_msg or default_backward_message(params)
     if lag is None:
@@ -246,7 +326,7 @@ def latent_var_sample(params: LGSSMParams, generator, observations,
                       distr: str = "joint", lag=None, backward_msg=None,
                       valid=None, normals=None) -> torch.Tensor:
     """Posterior latent draws per chain: ``distr='joint'`` FFBS paths
-    (``[C, T, 1]``, or ``[C, num_samples, T, 1]``); ``distr='marginal'``
+    (``[C, T, n]``, or ``[C, num_samples, T, n]``); ``distr='marginal'``
     independent per-t draws from the (optionally lagged) marginals.
     ``normals`` shaped like the output replace the generator's."""
     if distr == "joint":
@@ -383,7 +463,7 @@ def simulate_paths(params: LGSSMParams, generator, T: int,
 def windowed_marginal_gradient(params: LGSSMParams, window, valid, weights,
                                B: int, S: int):
     """The buffered exact-gradient estimator over fixed-shape windows
-    ``[R, B + S + B, 1]`` of R rows (``params`` with R chains): boundary
+    ``[R, B + S + B, m]`` of R rows (``params`` with R chains): boundary
     messages over the buffers (rows masked by ``valid [R, W]`` pass
     through) from the default messages, then the weighted gradient and
     marginal log-likelihood over the central S steps (weights
@@ -422,12 +502,12 @@ def windowed_complete_gradient(params: LGSSMParams, window, valid, weights,
     A'Q^-1 A and h_c = h_0 + A'Q^-1 x_B (y never touches it), so that the
     Fisher identity E[grad complete] = grad marginal holds exactly.
 
-    Draws: ``normals [R, K, W, 1]`` (the FFBS normals of
-    :func:`~..ops.kalman.ffbs_sample`) and ``completion [R, K, 1]``, K =
+    Draws: ``normals [R, K, W, n]`` (the FFBS normals of
+    :func:`~..ops.kalman.ffbs_sample`) and ``completion [R, K, n]``, K =
     ``num_samples``; without them they come from ``generator``."""
     batch, W, dt, dev = window.shape[:-2], window.shape[-2], window.dtype, \
         window.device
-    K, n = num_samples, 1
+    K, n = num_samples, params.n
     if normals is None:
         normals = torch.randn(batch + (K, W, n), generator=generator,
                               dtype=dt, device=dev)
@@ -459,12 +539,12 @@ def windowed_complete_gradient(params: LGSSMParams, window, valid, weights,
 
 def complete_data_loglikelihood(params: LGSSMParams, observations,
                                 latent_vars, x_prev=None, weights=None):
-    """log p(y, x | theta) [...] for observations ``[..., T, 1]`` and
-    latents ``[..., T, 1]``, each step weighted by ``weights [..., T]``;
-    ``x_prev [..., 1]`` (the latent before the first step) adds the first
+    """log p(y, x | theta) [...] for observations ``[..., T, m]`` and
+    latents ``[..., T, n]``, each step weighted by ``weights [..., T]``;
+    ``x_prev [..., n]`` (the latent before the first step) adds the first
     transition."""
     A, C, LQinv, LRinv = _mats(params)
-    n = m = 1
+    n, m = A.shape[-1], C.shape[-2]
     x = latent_vars
     T = x.shape[-2]
     if weights is None:
@@ -498,8 +578,15 @@ def _col(v):
 
 
 def _sample_x0(params: LGSSMParams, z, prior_mean, prior_var):
-    return _col(prior_mean) + _col(torch.sqrt(prior_var)) * z
+    """x0 = mean + chol(prior_var) z for z [C, N, n]: a variance [C] (or
+    scalar) scales every coordinate, a covariance [C, n, n] by its
+    Cholesky factor."""
+    if prior_var.dim() < 3:
+        return _col(prior_mean) + _col(torch.sqrt(prior_var)) * z
+    return prior_mean[:, None, :] + z @ cholesky(prior_var).mT
 
+
+# The scalar model's kernels: elementwise on [C, N, 1] particles.
 
 def _propose_prior(params: LGSSMParams, z, x_t, y_next):
     """x' ~ N(A x, Q)."""
@@ -544,6 +631,66 @@ def _prior_log_density_max(params: LGSSMParams):
     return -0.5 * _LOG_2PI + torch.log(torch.abs(params.lqinv))
 
 
+# The same kernels for any n, m: particles [C, N, n], observations [C, m].
+
+def _half_logdet(L):
+    """sum log |diag L| [C] of Cholesky factors [C, k, k]."""
+    return torch.log(torch.abs(torch.diagonal(L, dim1=-2, dim2=-1))).sum(-1)
+
+
+def _gauss_logpdf(z, half_logdet):
+    """log N of whitened residuals z [C, N, k] [C, N]."""
+    k = z.shape[-1]
+    return (-0.5 * k * _LOG_2PI + half_logdet[:, None]
+            - 0.5 * (z * z).sum(-1))
+
+
+def _propose_prior_n(params: LGSSMParams, z, x_t, y_next):
+    """x' = A x + LQinv^-T z."""
+    noise = solve_upper(params.LQinv.mT, z.mT).mT
+    return x_t @ params.A.mT + noise
+
+
+def _reweight_prior_n(params: LGSSMParams, x_t, x_next, y_next):
+    """log N(y'; C x', R) [C, N]."""
+    LRinv = params.LRinv
+    diff = y_next[:, None, :] - x_next @ params.C.mT
+    return _gauss_logpdf(diff @ LRinv, _half_logdet(LRinv))
+
+
+def _propose_optimal_n(params: LGSSMParams, z, x_t, y_next):
+    """x' ~ N(Sigma (Q^-1 A x + C^T R^-1 y'), Sigma), Sigma^-1 = Q^-1 +
+    C^T R^-1 C."""
+    Qinv, Rinv = params.Qinv, params.Rinv
+    CtRinv = params.C.mT @ Rinv                          # [C, n, m]
+    Sigma = inv(Qinv + CtRinv @ params.C)
+    mean = ((x_t @ params.A.mT) @ Qinv.mT
+            + y_next[:, None, :] @ CtRinv.mT) @ Sigma.mT
+    return mean + z @ cholesky(Sigma).mT
+
+
+def _reweight_optimal_n(params: LGSSMParams, x_t, x_next, y_next):
+    """log p(y' | x) = log N(y'; C A x, C Q C^T + R) [C, N]."""
+    Q, R = _noise_covariances(params)
+    Cm = params.C
+    y_cov = Cm @ Q @ Cm.mT + R
+    diff = y_next[:, None, :] - (x_t @ params.A.mT) @ Cm.mT
+    quad = ((diff @ inv(y_cov)) * diff).sum(-1)
+    return (-0.5 * Cm.shape[-2] * _LOG_2PI - 0.5 * logdet(y_cov)[:, None]
+            - 0.5 * quad)
+
+
+def _prior_log_density_n(params: LGSSMParams, x_t, x_next):
+    """log q(x_next | x_t) [C, M] for x_t, x_next [C, M, n]."""
+    LQinv = params.LQinv
+    return _gauss_logpdf((x_next - x_t @ params.A.mT) @ LQinv,
+                         _half_logdet(LQinv))
+
+
+def _prior_log_density_max_n(params: LGSSMParams):
+    return -0.5 * params.n * _LOG_2PI + _half_logdet(params.LQinv)
+
+
 PRIOR_KERNEL = ParticleKernel(
     sample_x0=_sample_x0, propose=_propose_prior, reweight=_reweight_prior,
     prior_log_density=_prior_log_density,
@@ -555,24 +702,64 @@ OPTIMAL_KERNEL = ParticleKernel(
     prior_log_density_max=_prior_log_density_max, state_dim=1, noise_dim=1)
 
 
-def get_kernel(name: str | None = None) -> ParticleKernel:
-    """The JAX package's kernel names: the default is the optimal one."""
-    if name in (None, "optimal", "highdim"):
-        return OPTIMAL_KERNEL
-    if name == "prior":
-        return PRIOR_KERNEL
-    raise ValueError(f"Unrecognized LGSSM kernel '{name}'")
+@functools.lru_cache(maxsize=None)
+def _vector_kernels(n: int):
+    """(optimal, prior) kernels of an n-dimensional state: they draw (and
+    take) n normals a particle and step."""
+    common = dict(sample_x0=_sample_x0,
+                  prior_log_density=_prior_log_density_n,
+                  prior_log_density_max=_prior_log_density_max_n,
+                  state_dim=n, noise_dim=n)
+    return (ParticleKernel(propose=_propose_optimal_n,
+                           reweight=_reweight_optimal_n, **common),
+            ParticleKernel(propose=_propose_prior_n,
+                           reweight=_reweight_prior_n, **common))
+
+
+def get_kernel(name: str | None = None, n: int = 1,
+               m: int = 1) -> ParticleKernel:
+    """The JAX package's kernel names (the default is the optimal one) for
+    an n-dimensional state and m-dimensional observations.  Unlike the
+    JAX package's kernels, which draw their own normals, these declare
+    ``state_dim = noise_dim = n``: the port sizes its drawn normals by
+    them."""
+    if name not in (None, "optimal", "highdim", "prior"):
+        raise ValueError(f"Unrecognized LGSSM kernel '{name}'")
+    prior = name == "prior"
+    if n == 1 and m == 1:
+        return PRIOR_KERNEL if prior else OPTIMAL_KERNEL
+    return _vector_kernels(n)[1 if prior else 0]
 
 
 # --------------------------------------------------------------------------
-# Additive statistic (Fisher-identity score)
+# Additive statistics (Fisher-identity score; sufficient statistics)
 # --------------------------------------------------------------------------
 
-STATISTIC_DIM = 4  # [grad_LRinv_vec, grad_LQinv_vec, grad_C, grad_A]
+# [grad_LRinv_vec, grad_LQinv_vec, grad_C, grad_A] of the scalar model
+STATISTIC_DIM = 4
+
+
+def statistic_dim(n: int, m: int) -> int:
+    """[grad_LRinv_vec, grad_LQinv_vec, grad_C, grad_A] packed size."""
+    return (m * (m + 1)) // 2 + (n * (n + 1)) // 2 + m * n + n * n
+
+
+def _tril_inv_t(L):
+    """inv(L)^T of lower-triangular L [..., k, k]."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return torch.linalg.solve_triangular(L, eye.expand(L.shape),
+                                         upper=False).mT
+
+
+def _outer(u, v):
+    return u[..., :, None] * v[..., None, :]
 
 
 def grad_statistic(params: LGSSMParams, x_t, x_next, y_next, t):
-    """Per-particle gradient of log Pr(y', x' | x, theta), [C, N, 4]."""
+    """Per-particle gradient of log Pr(y', x' | x, theta), [C, N,
+    statistic_dim(n, m)], in :func:`unpack_grad`'s order."""
+    if not _is_scalar(params):
+        return _grad_statistic_n(params, x_t, x_next, y_next)
     x0, x1 = x_t[..., 0], x_next[..., 0]
     a, c = params.a[:, None], params.c[:, None]
     lqinv, lrinv = params.lqinv[:, None], params.lrinv[:, None]
@@ -585,13 +772,33 @@ def grad_statistic(params: LGSSMParams, x_t, x_next, y_next, t):
     return torch.stack([grad_LRinv, grad_LQinv, grad_C, grad_A], -1)
 
 
-SUFF_STATISTIC_DIM = 3  # [x', x'^2, x x']
+def _grad_statistic_n(params: LGSSMParams, x_t, x_next, y_next):
+    # (d d^T) L is formed as d (d^T L): one [C, N, k] x [C, k, k] product
+    # a chain, not a [C * N]-batch of k x k products
+    LQinv, LRinv = params.LQinv, params.LRinv
+    diff = x_next - x_t @ params.A.mT                        # [C, N, n]
+    grad_A = _outer(diff @ params.Qinv.mT, x_t)
+    grad_LQinv = _tril_inv_t(LQinv)[:, None] - _outer(diff, diff @ LQinv)
+    diff_y = y_next[:, None, :] - x_next @ params.C.mT       # [C, N, m]
+    grad_C = _outer(diff_y @ params.Rinv.mT, x_next)
+    grad_LRinv = (_tril_inv_t(LRinv)[:, None]
+                  - _outer(diff_y, diff_y @ LRinv))
+    return torch.cat([mat_to_tril_vector(grad_LRinv),
+                      mat_to_tril_vector(grad_LQinv),
+                      grad_C.flatten(-2), grad_A.flatten(-2)], -1)
+
+
+SUFF_STATISTIC_DIM = 3  # [x', x'^2, x x'] of the scalar model
 
 
 def suff_statistic(params: LGSSMParams, x_t, x_next, y_next, t):
-    """Gaussian sufficient statistics per particle, [C, N, 3]."""
-    x0, x1 = x_t[..., 0], x_next[..., 0]
-    return torch.stack([x1, x1 * x1, x0 * x1], -1)
+    """Gaussian sufficient statistics per particle: [C, N, 3] at n = 1,
+    else [x', vec(x' x'^T), vec(x x'^T)], [C, N, n + 2 n^2]."""
+    if x_t.shape[-1] == 1:
+        x0, x1 = x_t[..., 0], x_next[..., 0]
+        return torch.stack([x1, x1 * x1, x0 * x1], -1)
+    return torch.cat([x_next, _outer(x_next, x_next).flatten(-2),
+                      _outer(x_t, x_next).flatten(-2)], -1)
 
 
 # --------------------------------------------------------------------------
@@ -653,12 +860,14 @@ def make_predictive_stat_fn(observations, num_steps_ahead: int,
     return stat_fn
 
 
-def unpack_grad(stat: torch.Tensor) -> LGSSMParams:
-    """Score vectors [C, 4] -> gradient parameters."""
+def unpack_grad(stat: torch.Tensor, n: int = 1, m: int = 1) -> LGSSMParams:
+    """Score vectors [C, statistic_dim(n, m)] -> gradient parameters."""
     C = stat.shape[0]
-    return LGSSMParams(A=stat[:, 3].reshape(C, 1, 1),
-                       C=stat[:, 2].reshape(C, 1, 1),
-                       LQinv_vec=stat[:, 1:2], LRinv_vec=stat[:, 0:1])
+    dr, dq = (m * (m + 1)) // 2, (n * (n + 1)) // 2
+    i = dr + dq
+    return LGSSMParams(A=stat[:, i + m * n:i + m * n + n * n].reshape(C, n, n),
+                       C=stat[:, i:i + m * n].reshape(C, m, n),
+                       LQinv_vec=stat[:, dr:i], LRinv_vec=stat[:, 0:dr])
 
 
 # --------------------------------------------------------------------------
@@ -731,12 +940,21 @@ def get_fused(name: str | None = None):
 
 
 # --------------------------------------------------------------------------
-# SGRLD preconditioner at n = m = 1: D(theta) in the JAX package's
-# coordinates (its precondition, precondition_noise and correction_term)
+# SGRLD preconditioner: D(theta) in the JAX package's coordinates (its
+# precondition, precondition_noise and correction_term)
 # --------------------------------------------------------------------------
 
 def precondition(params: LGSSMParams, grad: LGSSMParams) -> LGSSMParams:
-    """D(theta) grad: (Q gA, R gC, Qinv gLQ / 2, Rinv gLR / 2)."""
+    """D(theta) grad: (Q gA, R gC, tril(Qinv gLQ) / 2, tril(Rinv gLR) /
+    2)."""
+    if not _is_scalar(params):
+        Q, R = _noise_covariances(params)
+        return LGSSMParams(
+            A=Q @ grad.A, C=R @ grad.C,
+            LQinv_vec=mat_to_tril_vector(
+                0.5 * params.Qinv @ tril_vector_to_mat(grad.LQinv_vec)),
+            LRinv_vec=mat_to_tril_vector(
+                0.5 * params.Rinv @ tril_vector_to_mat(grad.LRinv_vec)))
     qinv, rinv = params.qinv[:, None], params.rinv[:, None]
     return LGSSMParams(A=params.Q[:, None, None] * grad.A,
                        C=params.R[:, None, None] * grad.C,
@@ -744,23 +962,48 @@ def precondition(params: LGSSMParams, grad: LGSSMParams) -> LGSSMParams:
                        LRinv_vec=0.5 * rinv * grad.LRinv_vec)
 
 
+def precondition_normals(generator: torch.Generator,
+                         params: LGSSMParams) -> LGSSMParams:
+    """The standard normals :func:`precondition_noise` takes beyond the
+    scalar model: zA [C, n, n], zC [C, m, n], and full square zQ [C, n, n]
+    and zR [C, m, m] in the Cholesky fields (the noise of a Cholesky factor
+    is tril(L z) of a full z)."""
+    C, n, m = params.num_chains, params.n, params.m
+    dt, dev = params.A.dtype, params.A.device
+    return LGSSMParams(*[torch.randn(shape, generator=generator, dtype=dt,
+                                     device=dev)
+                         for shape in ((C, n, n), (C, m, n), (C, n, n),
+                                       (C, m, m))])
+
+
 def precondition_noise(params: LGSSMParams, z: LGSSMParams) -> LGSSMParams:
-    """sqrt(D(theta)) z for four standard normals ``z`` shaped like the
-    parameters: (zA / LQinv, zC / LRinv, LQinv zQ / sqrt 2,
-    LRinv zR / sqrt 2)."""
-    lqinv, lrinv = params.LQinv_vec, params.LRinv_vec
-    return LGSSMParams(A=z.A / lqinv[:, :, None], C=z.C / lrinv[:, :, None],
-                       LQinv_vec=np.sqrt(0.5) * lqinv * z.LQinv_vec,
-                       LRinv_vec=np.sqrt(0.5) * lrinv * z.LRinv_vec)
+    """sqrt(D(theta)) z for standard normals ``z``: (LQinv^-T zA,
+    LRinv^-T zC, tril(LQinv zQ) / sqrt 2, tril(LRinv zR) / sqrt 2).  The
+    scalar model takes ``z`` shaped like the parameters, any other the
+    square zQ, zR of :func:`precondition_normals`."""
+    if _is_scalar(params):
+        lqinv, lrinv = params.LQinv_vec, params.LRinv_vec
+        return LGSSMParams(
+            A=z.A / lqinv[:, :, None], C=z.C / lrinv[:, :, None],
+            LQinv_vec=np.sqrt(0.5) * lqinv * z.LQinv_vec,
+            LRinv_vec=np.sqrt(0.5) * lrinv * z.LRinv_vec)
+    if z.LQinv_vec.dim() != 3:
+        raise ValueError("precondition_noise beyond n = m = 1 takes the "
+                         "square normals of precondition_normals")
+    LQinv, LRinv = params.LQinv, params.LRinv
+    return LGSSMParams(
+        A=solve_upper(LQinv.mT, z.A), C=solve_upper(LRinv.mT, z.C),
+        LQinv_vec=mat_to_tril_vector(np.sqrt(0.5) * LQinv @ z.LQinv_vec),
+        LRinv_vec=mat_to_tril_vector(np.sqrt(0.5) * LRinv @ z.LRinv_vec))
 
 
 def correction_term(params: LGSSMParams) -> LGSSMParams:
-    """Gamma(theta): 0 for A and C, (n + 1) / 2 L for the Cholesky
-    factors (n = m = 1)."""
+    """Gamma(theta): 0 for A and C, (n + 1) / 2 LQinv and (m + 1) / 2
+    LRinv for the Cholesky factors."""
     return LGSSMParams(A=torch.zeros_like(params.A),
                        C=torch.zeros_like(params.C),
-                       LQinv_vec=0.5 * (1 + 1) * params.LQinv_vec,
-                       LRinv_vec=0.5 * (1 + 1) * params.LRinv_vec)
+                       LQinv_vec=0.5 * (params.n + 1) * params.LQinv_vec,
+                       LRinv_vec=0.5 * (params.m + 1) * params.LRinv_vec)
 
 
 # --------------------------------------------------------------------------
@@ -769,27 +1012,31 @@ def correction_term(params: LGSSMParams) -> LGSSMParams:
 
 @dataclasses.dataclass
 class LGSSMPrior:
-    mean_A: torch.Tensor       # (1, 1)
-    var_col_A: torch.Tensor    # (1,)
-    mean_C: torch.Tensor       # (1, 1)
-    var_col_C: torch.Tensor    # (1,)
-    scale_Qinv: torch.Tensor   # (1, 1)
+    mean_A: torch.Tensor       # (n, n)
+    var_col_A: torch.Tensor    # (n,)
+    mean_C: torch.Tensor       # (m, n)
+    var_col_C: torch.Tensor    # (n,)
+    scale_Qinv: torch.Tensor   # (n, n)
     df_Qinv: torch.Tensor      # ()
-    scale_Rinv: torch.Tensor   # (1, 1)
+    scale_Rinv: torch.Tensor   # (m, m)
     df_Rinv: torch.Tensor      # ()
 
 
-def default_prior(var: float = 100.0, dtype=torch.float32,
-                  device=None) -> LGSSMPrior:
-    """The JAX package's default hyperparameters at n = m = 1."""
-    df = 2.0 + 1.0 / var
+def default_prior(n: int = 1, m: int = 1, var: float = 100.0,
+                  dtype=torch.float32, device=None) -> LGSSMPrior:
+    """The JAX package's default hyperparameters."""
+    df_q = n + 1.0 + 1.0 / var
+    df_r = m + 1.0 + 1.0 / var
 
     def full(shape, v):
         return torch.full(shape, v, dtype=dtype, device=device)
-    return LGSSMPrior(mean_A=full((1, 1), 0.0), var_col_A=full((1,), var),
-                      mean_C=full((1, 1), 0.0), var_col_C=full((1,), var),
-                      scale_Qinv=full((1, 1), 1.0 / df), df_Qinv=full((), df),
-                      scale_Rinv=full((1, 1), 1.0 / df), df_Rinv=full((), df))
+
+    def eye(k, v):
+        return torch.eye(k, dtype=dtype, device=device) * v
+    return LGSSMPrior(mean_A=full((n, n), 0.0), var_col_A=full((n,), var),
+                      mean_C=full((m, n), 0.0), var_col_C=full((n,), var),
+                      scale_Qinv=eye(n, 1.0 / df_q), df_Qinv=full((), df_q),
+                      scale_Rinv=eye(m, 1.0 / df_r), df_Rinv=full((), df_r))
 
 
 def logprior(prior: LGSSMPrior, params: LGSSMParams) -> torch.Tensor:
@@ -806,11 +1053,27 @@ def logprior(prior: LGSSMPrior, params: LGSSMParams) -> torch.Tensor:
         Lcolprec=torch.diag(prior.var_col_C ** -0.5))
 
 
+def _cov_grad_logprior(L, df, scale):
+    """(df - k - 1) inv(L)^T - solve(scale, L) for Cholesky factors L
+    [C, k, k]."""
+    return (df - L.shape[-1] - 1) * _tril_inv_t(L) - solve(scale, L)
+
+
 def grad_logprior(prior: LGSSMPrior, params: LGSSMParams) -> LGSSMParams:
     """Analytic prior score with the JAX package's (and reference's)
     convention: the matrix-normal priors on A and C treat their row
     covariances (Q, R) as constants.  At n = m = 1 the Wishart terms
     ``(df - n - 1) inv(L)^T - solve(scale, L)`` are scalar."""
+    if not _is_scalar(params):
+        gq = _cov_grad_logprior(params.LQinv, prior.df_Qinv,
+                                prior.scale_Qinv)
+        gr = _cov_grad_logprior(params.LRinv, prior.df_Rinv,
+                                prior.scale_Rinv)
+        return LGSSMParams(
+            A=-(params.Qinv @ (params.A - prior.mean_A)) / prior.var_col_A,
+            C=-(params.Rinv @ (params.C - prior.mean_C)) / prior.var_col_C,
+            LQinv_vec=mat_to_tril_vector(gq),
+            LRinv_vec=mat_to_tril_vector(gr))
     n = 1
     lqinv, lrinv = params.lqinv, params.lrinv
     grad_LQinv = ((prior.df_Qinv - n - 1) / lqinv
@@ -825,28 +1088,77 @@ def grad_logprior(prior: LGSSMPrior, params: LGSSMParams) -> LGSSMParams:
                        LRinv_vec=grad_LRinv[:, None])
 
 
+class PriorDraws(NamedTuple):
+    """The random draws of :func:`sample_prior` over C chains: the
+    Wishart draws of Q^-1 and R^-1 (see :class:`GibbsDraws`) and the
+    matrix-normal normals of A and C."""
+    q_chi2: torch.Tensor        # [C, n]
+    q_off: torch.Tensor         # [C, n(n-1)/2]
+    r_chi2: torch.Tensor        # [C, m]
+    r_off: torch.Tensor         # [C, m(m-1)/2]
+    a_normals: torch.Tensor     # [C, n, n]
+    c_normals: torch.Tensor     # [C, m, n]
+
+
 def sample_prior(prior: LGSSMPrior, generator: torch.Generator,
-                 num_chains: int = 1) -> LGSSMParams:
-    """``num_chains`` independent prior draws."""
+                 num_chains: int = 1,
+                 draws: PriorDraws | None = None) -> LGSSMParams:
+    """``num_chains`` independent prior draws; ``draws`` replace the
+    generator's."""
     C = num_chains
-    Qinv = sample_wishart(generator, prior.df_Qinv, prior.scale_Qinv, (C,))
-    Rinv = sample_wishart(generator, prior.df_Rinv, prior.scale_Rinv, (C,))
-    lqinv = torch.sqrt(Qinv[:, 0, 0])
-    lrinv = torch.sqrt(Rinv[:, 0, 0])
-    z = torch.randn((C, 2), generator=generator, dtype=lqinv.dtype,
-                    device=lqinv.device)
-    A = prior.mean_A + (z[:, 0] / lqinv * torch.sqrt(
-        prior.var_col_A[0]))[:, None, None]
-    Cm = prior.mean_C + (z[:, 1] / lrinv * torch.sqrt(
-        prior.var_col_C[0]))[:, None, None]
-    return LGSSMParams(A=A, C=Cm, LQinv_vec=lqinv[:, None],
-                       LRinv_vec=lrinv[:, None])
+    n, m = prior.mean_A.shape[-1], prior.mean_C.shape[-2]
+    if n == 1 and m == 1 and draws is None:
+        Qinv = sample_wishart(generator, prior.df_Qinv, prior.scale_Qinv,
+                              (C,))
+        Rinv = sample_wishart(generator, prior.df_Rinv, prior.scale_Rinv,
+                              (C,))
+        lqinv = torch.sqrt(Qinv[:, 0, 0])
+        lrinv = torch.sqrt(Rinv[:, 0, 0])
+        z = torch.randn((C, 2), generator=generator, dtype=lqinv.dtype,
+                        device=lqinv.device)
+        A = prior.mean_A + (z[:, 0] / lqinv * torch.sqrt(
+            prior.var_col_A[0]))[:, None, None]
+        Cm = prior.mean_C + (z[:, 1] / lrinv * torch.sqrt(
+            prior.var_col_C[0]))[:, None, None]
+        return LGSSMParams(A=A, C=Cm, LQinv_vec=lqinv[:, None],
+                           LRinv_vec=lrinv[:, None])
+    d = draws or PriorDraws(*[None] * 6)
+    LQinv = cholesky(sample_wishart(generator, prior.df_Qinv,
+                                    prior.scale_Qinv, (C,), chi2=d.q_chi2,
+                                    off=d.q_off))
+    LRinv = cholesky(sample_wishart(generator, prior.df_Rinv,
+                                    prior.scale_Rinv, (C,), chi2=d.r_chi2,
+                                    off=d.r_off))
+    zA, zC = d.a_normals, d.c_normals
+    if zA is None:
+        zA, zC = [torch.randn(shape, generator=generator,
+                              dtype=LQinv.dtype, device=LQinv.device)
+                  for shape in ((C, n, n), (C, m, n))]
+    A = prior.mean_A + solve_upper(LQinv.mT, zA) * torch.sqrt(
+        prior.var_col_A)
+    Cm = prior.mean_C + solve_upper(LRinv.mT, zC) * torch.sqrt(
+        prior.var_col_C)
+    return LGSSMParams(A=A, C=Cm, LQinv_vec=mat_to_tril_vector(LQinv),
+                       LRinv_vec=mat_to_tril_vector(LRinv))
 
 
 def project_parameters(params: LGSSMParams, a_threshold: float = 0.9999,
                        fix_C_eye: bool = True) -> LGSSMParams:
-    """|A| <= threshold, positive Cholesky diagonals and, by default, the
-    C = 1 identifiability constraint."""
+    """Spectral norm of A <= threshold (a clip at n = 1), positive
+    Cholesky diagonals and, by default, the C = I identifiability
+    constraint."""
+    if not _is_scalar(params):
+        def fix_chol(vec):
+            L = tril_vector_to_mat(vec)
+            return mat_to_tril_vector(
+                L.tril(-1) + torch.diag_embed(torch.abs(torch.diagonal(
+                    L, dim1=-2, dim2=-1))))
+        Cm = (torch.eye(params.m, params.n, dtype=params.C.dtype,
+                        device=params.C.device).expand(params.C.shape)
+              .contiguous() if fix_C_eye else params.C)
+        return LGSSMParams(A=spectral_norm_projection(params.A, a_threshold),
+                           C=Cm, LQinv_vec=fix_chol(params.LQinv_vec),
+                           LRinv_vec=fix_chol(params.LRinv_vec))
     C = torch.ones_like(params.C) if fix_C_eye else params.C
     return LGSSMParams(A=spectral_norm_projection(params.A, a_threshold),
                        C=C, LQinv_vec=torch.abs(params.LQinv_vec),
@@ -858,7 +1170,7 @@ def project_parameters(params: LGSSMParams, a_threshold: float = 0.9999,
 # --------------------------------------------------------------------------
 
 class GibbsDraws(NamedTuple):
-    """The random draws of one Gibbs sweep over C chains (n = m = 1):
+    """The random draws of one Gibbs sweep over C chains:
     the FFBS normals, then the Wishart draws of Q^-1 and R^-1 (chi-square
     diagonals and off-diagonal normals, see
     :func:`~..utils.distributions.sample_wishart`) and the matrix-normal
@@ -914,7 +1226,7 @@ def _conjugate_mniw_sample(generator, S_prevprev, S_curprev, S_curcur, count,
 def gibbs_parameters_sample(generator, prior: LGSSMPrior, observations,
                             latent_vars, fix_C_eye: bool = True,
                             draws: GibbsDraws | None = None) -> LGSSMParams:
-    """theta | x, y per chain for latents ``[C, T, 1]``: conjugate block
+    """theta | x, y per chain for latents ``[C, T, n]``: conjugate block
     updates for (Q, A) and (R, C).  With ``fix_C_eye`` (the default
     identifiability constraint) R^-1 is drawn given C = I, a Wishart with
     the residual scatter of y - x, so the chain targets the fixed-C
@@ -948,7 +1260,7 @@ def gibbs_step(generator, prior: LGSSMPrior, params: LGSSMParams,
                observations, forward_msg=None,
                draws: GibbsDraws | None = None) -> LGSSMParams:
     """One blocked-Gibbs sweep for every chain of ``params``: x | theta by
-    FFBS over the observations ``[T, 1]``, then theta | x."""
+    FFBS over the observations ``[T, m]``, then theta | x."""
     x = latent_var_sample(params, generator, observations, forward_msg,
                           normals=None if draws is None else draws.ffbs)
     return gibbs_parameters_sample(generator, prior, observations, x,

@@ -1,10 +1,11 @@
 """Uniform model adapter (counterpart of ``sgmcmc_tpu/models/registry.py``,
 with the fields the particle and exact-message scores, the steppers,
-Gibbs and the predict surface read, and the SVM, scalar LGSSM, GARCH and
-SVJM entries)."""
+Gibbs and the predict surface read, and the SVM, LGSSM (any n, m), GARCH
+and SVJM entries)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
@@ -37,6 +38,9 @@ class ModelAPI:
     precondition: Callable | None = None
     precondition_noise: Callable | None = None
     correction_term: Callable | None = None
+    # (generator, params) -> the normals precondition_noise takes, when
+    # they are not shaped like the parameters (the vector LGSSM)
+    precondition_normals: Callable | None = None
     # the exact-message oracle and scores and Gibbs (LGSSM)
     marginal_loglikelihood: Callable | None = None
     gradient_marginal_loglikelihood: Callable | None = None
@@ -88,41 +92,60 @@ def _stationary_prior(mod):
 
 
 SVM = _api("svm", svm_mod, _stationary_prior(svm_mod))
-# the JAX package's (0, 10 I) initial-state prior, per chain
-LGSSM = _api("lgssm_1_1", lgssm_mod,
-             lambda p: (torch.zeros_like(p.a), torch.full_like(p.a, 10.0)),
-             precondition=lgssm_mod.precondition,
-             precondition_noise=lgssm_mod.precondition_noise,
-             correction_term=lgssm_mod.correction_term,
-             marginal_loglikelihood=lgssm_mod.marginal_loglikelihood,
-             gradient_marginal_loglikelihood=(
-                 lgssm_mod.gradient_marginal_loglikelihood),
-             windowed_marginal_gradient=lgssm_mod.windowed_marginal_gradient,
-             windowed_complete_gradient=lgssm_mod.windowed_complete_gradient,
-             latent_var_sample=lgssm_mod.latent_var_sample,
-             latent_var_distr=lgssm_mod.latent_var_distr,
-             y_distr=lgssm_mod.y_distr, y_sample=lgssm_mod.y_sample,
-             simulate_distr=lgssm_mod.simulate_distr,
-             simulate_paths=lgssm_mod.simulate_paths,
-             predictive_loglikelihood=lgssm_mod.predictive_loglikelihood,
-             gibbs_step=lgssm_mod.gibbs_step)
+
+
+# the exact-message, preconditioner, Gibbs and exact-predict fields only
+# the LGSSM module fills, under the module's own names
+_LGSSM_ONLY = ("precondition", "precondition_noise", "correction_term",
+               "marginal_loglikelihood", "gradient_marginal_loglikelihood",
+               "windowed_marginal_gradient", "windowed_complete_gradient",
+               "latent_var_sample", "latent_var_distr", "y_distr",
+               "y_sample", "simulate_distr", "simulate_paths", "gibbs_step",
+               "predictive_loglikelihood")
+
+
+@functools.lru_cache(maxsize=None)
+def _lgssm_api(n: int = 1, m: int = 1) -> ModelAPI:
+    """The LGSSM with an n-dimensional state and m-dimensional
+    observations.  Its initial-state prior is the JAX package's (0, 10 I)
+    per chain ([C] values at n = 1); the fused window (K1) is the scalar
+    model's alone, as in the JAX package."""
+    scalar = n == 1 and m == 1
+    stat_dim = 3 if n == 1 else n + 2 * n * n
+    if n == 1:
+        def prior_mean_var(p):
+            return torch.zeros_like(p.a), torch.full_like(p.a, 10.0)
+    else:
+        def prior_mean_var(p):
+            C, dt, dev = p.num_chains, p.A.dtype, p.A.device
+            return (torch.zeros((C, n), dtype=dt, device=dev),
+                    10.0 * torch.eye(n, dtype=dt, device=dev).expand(C, n, n))
+    # only the fields that depend on n and m differ from the module's
+    return dataclasses.replace(
+        _api(f"lgssm_{n}_{m}", lgssm_mod, prior_mean_var,
+             **{f: getattr(lgssm_mod, f) for f in _LGSSM_ONLY}),
+        get_kernel=functools.partial(lgssm_mod.get_kernel, n=n, m=m),
+        grad_statistic_dim=lgssm_mod.statistic_dim(n, m),
+        unpack_grad=functools.partial(lgssm_mod.unpack_grad, n=n, m=m),
+        default_prior=functools.partial(lgssm_mod.default_prior, n, m),
+        get_fused=lgssm_mod.get_fused if scalar else None,
+        suff_statistic_dim=stat_dim, y_statistic_dim=stat_dim,
+        precondition_normals=(None if scalar
+                              else lgssm_mod.precondition_normals))
+
+
+LGSSM = _lgssm_api(1, 1)
 GARCH = _api("garch", garch_mod, _stationary_prior(garch_mod))
 SVJM = _api("svjm", svjm_mod, _stationary_prior(svjm_mod))
 _MODELS = {"svm": SVM, "garch": GARCH, "svjm": SVJM}
 
 
 def get_model(name: str, **kwargs) -> ModelAPI:
-    """The model adapter ``name``; the LGSSM takes ``n`` and ``m``, of
-    which only the scalar model (n = m = 1) is ported."""
+    """The model adapter ``name``; the LGSSM takes ``n`` and ``m`` (the
+    scalar entry ``LGSSM`` without them, or at n = m = 1)."""
     if name in _MODELS and not kwargs:
         return _MODELS[name]
     if name == "lgssm" and set(kwargs) <= {"n", "m"}:
-        n, m = kwargs.get("n", 1), kwargs.get("m", 1)
-        if (n, m) == (1, 1):
-            return LGSSM
-        raise NotImplementedError(
-            f"lgssm with n={n}, m={m} is not ported yet: the port has the "
-            "scalar model (n = m = 1); the vector model is ROADMAP.md, "
-            "Queue 1, slice 9b")
+        return _lgssm_api(int(kwargs.get("n", 1)), int(kwargs.get("m", 1)))
     raise NotImplementedError(f"model '{name}' with {kwargs} is not ported "
                               "yet")

@@ -58,8 +58,8 @@ def run_buffered_pf(
         smoother: str = "poyiadjis_N",
         step_weights: torch.Tensor | None = None,   # [C, W]
         in_window: torch.Tensor | None = None,      # [C, W] {0., 1.}
-        prior_mean=0.0,                  # [C] or scalar
-        prior_var=1.0,                   # [C] or scalar
+        prior_mean=0.0,                  # [C] or scalar, or [C, D]
+        prior_var=1.0,                   # [C] or scalar, or [C, D, D]
         resampler: str = "multinomial",
         resample_mode: str = "auto",
         lambduh: float = 0.95,
@@ -120,8 +120,10 @@ def run_buffered_pf(
                               slots=slots)
     D = kernel.state_dim
     N = z0.shape[-1]
-    pm = torch.as_tensor(prior_mean, dtype=dtype, device=dev).reshape(-1)
-    pv = torch.as_tensor(prior_var, dtype=dtype, device=dev).reshape(-1)
+    pm = torch.as_tensor(prior_mean, dtype=dtype, device=dev)
+    pv = torch.as_tensor(prior_var, dtype=dtype, device=dev)
+    if pv.dim() < 3:            # a variance per chain (or one for all)
+        pm, pv = pm.reshape(-1), pv.reshape(-1)
     x0 = kernel.sample_x0(params, z0[:, :D].transpose(1, 2), pm, pv)
     stats_shape = (C, H) if smoother == "filter" else (C, N, H)
     carry = PFCarry(x0, torch.zeros((C, N), dtype=dtype, device=dev),

@@ -1,6 +1,8 @@
 """Linear-algebra helpers (counterpart of ``sgmcmc_tpu/utils/linalg.py``)."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -18,6 +20,14 @@ def tril_n_from_dim(d: int) -> int:
     return n
 
 
+@functools.lru_cache(maxsize=None)
+def _tril_indices(n: int, device: torch.device):
+    """Row and column indices of the lower triangle of an (n, n) matrix,
+    row-major, made once per size and device (no host copy per call)."""
+    rows, cols = torch.tril_indices(n, n, device=device)
+    return rows, cols
+
+
 def tril_vector_to_mat(vec: torch.Tensor) -> torch.Tensor:
     """Expand a packed lower-triangle vector [..., d] into [..., n, n].
 
@@ -26,9 +36,9 @@ def tril_vector_to_mat(vec: torch.Tensor) -> torch.Tensor:
     n = tril_n_from_dim(vec.shape[-1])
     if n == 1:
         return vec[..., None]
-    rows, cols = np.tril_indices(n)
+    rows, cols = _tril_indices(n, vec.device)
     mat = vec.new_zeros(vec.shape[:-1] + (n, n))
-    mat[..., torch.as_tensor(rows), torch.as_tensor(cols)] = vec
+    mat[..., rows, cols] = vec
     return mat
 
 
@@ -36,19 +46,21 @@ def mat_to_tril_vector(mat: torch.Tensor) -> torch.Tensor:
     """Pack the lower triangle of [..., n, n] row-major into [..., d]."""
     if mat.shape[-1] == 1:
         return mat[..., 0]
-    rows, cols = np.tril_indices(mat.shape[-1])
-    return mat[..., torch.as_tensor(rows), torch.as_tensor(cols)]
+    rows, cols = _tril_indices(mat.shape[-1], mat.device)
+    return mat[..., rows, cols]
 
 
 def spectral_norm_projection(A: torch.Tensor,
                              threshold: float = 0.9999) -> torch.Tensor:
     """The JAX package's VAR-stability projection of [..., n, n] matrices
-    to spectral norm <= threshold, for n = 1 (the ported scalar models): a
-    clip of A to [-threshold, threshold]."""
-    if A.shape[-1] != 1:
-        raise NotImplementedError("spectral_norm_projection is ported for "
-                                  "1 x 1 matrices only")
-    return torch.clamp(A, -threshold, threshold)
+    to spectral norm <= threshold: a clip of A to [-threshold, threshold]
+    at n = 1, else A shrunk by its largest singular value (which bounds
+    the spectral radius)."""
+    if A.shape[-1] == 1:
+        return torch.clamp(A, -threshold, threshold)
+    s_max = torch.linalg.matrix_norm(A, ord=2)
+    scale = torch.clamp(threshold / torch.clamp(s_max, min=1e-30), max=1.0)
+    return A * scale[..., None, None]
 
 
 # Batched solves, inverses, factors and log-determinants of [..., n, n]

@@ -298,8 +298,12 @@ def test_lgssm_fit_scan_on_cpu(resampler):
 
 
 def test_registry_has_the_scalar_lgssm_only():
+    """The scalar entry is the one object with K1's bodies; the vector
+    model (n = 2, m = 1) is its own entry, without them."""
     assert registry.get_model("lgssm") is registry.LGSSM
     assert registry.get_model("lgssm", n=1, m=1) is registry.LGSSM
-    with pytest.raises(NotImplementedError, match="n=2"):
-        registry.get_model("lgssm", n=2, m=1)
+    assert registry.LGSSM.get_fused is lgssm.get_fused
+    vec = registry.get_model("lgssm", n=2, m=1)
+    assert vec is not registry.LGSSM and vec.get_fused is None
+    assert vec.name == "lgssm_2_1" and vec.get_kernel().state_dim == 2
     assert sgmcmc_tpu_torch.LGSSMSampler is LGSSMSampler

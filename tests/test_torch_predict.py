@@ -573,8 +573,8 @@ def test_seq_predictive_loglikelihood_matches_jax():
 
 def test_predict_contract():
     """The JAX package's errors, one chain only (select_chain), the HMM
-    branch and the vector LGSSM pointing at their slices, and the
-    aliases."""
+    branch pointing at its slice, the vector LGSSM's predict statistics,
+    and the aliases."""
     ys, _ = svm.generate_data(torch.Generator().manual_seed(1),
                               svm.from_scalars(0.9, 0.5, 1.0), 12)
     smp = samplers.SVMSampler(ys, device="cpu")
@@ -609,8 +609,8 @@ def test_predict_contract():
     smp.select_chain(1)
     assert smp.predictive_loglikelihood(1, N=8).shape == (2,)
     assert smp.prior_init().num_chains == 1
-    with pytest.raises(NotImplementedError, match="slice 9b"):
-        registry.get_model("lgssm", n=2)
+    vec = registry.get_model("lgssm", n=2)
+    assert (vec.suff_statistic_dim, vec.y_statistic_dim) == (10, 10)
     ls = samplers.LGSSMSampler(ys, device="cpu")
     draws = ls.latent_var_sample(num_samples=2, kind="marginal")
     assert draws.shape == (2, 12, 1) and draws.dtype == np.float64
