@@ -7,6 +7,7 @@
         [--model svm|lgssm|lgssm2|garch|svjm] [--kernel optimal|prior]
         [--kind pf|marginal|complete] [--gibbs]
         [--pf poyiadjis_N|paris|paris_ar|...] [--subsequence 40]
+        [--buffer 10] [--T 1000]
         [--iter-type SGLD|SGRLD|SGD|SGRD|ADAGRAD|SGLD-CV]
         [--predict [--target latent|y] [--lag K] | --predictive K]
 
@@ -27,9 +28,13 @@ Q=0.5, R=1, pJ=0.1, QJ=2; start 0.5, 1, 2, 0.05, 1) instead, ``--kernel``
 selects the particle kernel, ``--pf`` the smoother (``paris`` /
 ``paris_ar``: PaRIS, one resample-apply launch per window step),
 ``--subsequence`` the subsequence length (-1: the whole series, no
-buffer) and ``--iter-type`` the stepper (SGRLD and SGRD need the LGSSM's
-preconditioner; SGLD-CV centres at the start parameters, with their
-noisy gradient as the centering gradient); ``--kernel laplace|ep`` (SVM)
+buffer), ``--buffer`` its buffer, ``--T`` the series' length (the
+exchange-rate demo's SGLD leg on one segment: ``--chains 1 --particles
+1000 --subsequence 16 --buffer 4 --T 579``; the KSD gate's LD leg:
+``--chains 1 --particles 128 --pf paris --resampler multinomial
+--subsequence -1 --T 125``) and ``--iter-type`` the stepper (SGRLD and
+SGRD need the LGSSM's preconditioner; SGLD-CV centres at the start
+parameters, with their noisy gradient as the centering gradient); ``--kernel laplace|ep`` (SVM)
 and ``ep|ep_avg`` (SVJM) run the adaptive proposals.  ``--predict`` times
 one chain's ``predict`` (at the true parameters; ``--target``, ``--lag``,
 ``--pf`` and ``--particles`` as its arguments) in place of a fit, and
@@ -68,7 +73,6 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
 S, B, T = 40, 10, 1000
-W = S + 2 * B
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -120,6 +124,8 @@ def main():
     ap.add_argument("--gibbs", action="store_true")
     ap.add_argument("--pf", default="poyiadjis_N")
     ap.add_argument("--subsequence", type=int, default=S)
+    ap.add_argument("--buffer", type=int, default=B)
+    ap.add_argument("--T", type=int, default=T)
     ap.add_argument("--iter-type", default="SGLD",
                     choices=("SGLD", "SGRLD", "SGD", "SGRD", "ADAGRAD",
                              "SGLD-CV"))
@@ -164,12 +170,13 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(0)
     api = (registry.get_model("lgssm", n=2, m=2) if args.model == "lgssm2"
            else registry.get_model(args.model))
-    ys, _ = api.generate_data(gen, truth.to(dev), T)
+    T_len = args.T
+    ys, _ = api.generate_data(gen, truth.to(dev), T_len)
     sampler = cls(observations=ys, device="cuda", seed=2)
     sampler.parameters = start
     full = args.subsequence == -1
     kw = dict(N=N, subsequence_length=args.subsequence,
-              buffer_length=0 if full else B, pf=args.pf,
+              buffer_length=0 if full else args.buffer, pf=args.pf,
               resampler=args.resampler, rng=args.rng, kernel=args.kernel,
               kind=args.kind)
     Z = sampler.model.get_kernel(args.kernel).noise_dim
@@ -179,18 +186,18 @@ def main():
                 if args.predictive is not None else
                 f"predict(target={args.target!r}, lag={args.lag})")
         print(f"config: {args.model} (kernel {args.kernel or 'default'}) "
-              f"{what}, one chain, N={N}, T={T}, {args.pf}")
+              f"{what}, one chain, N={N}, T={T_len}, {args.pf}")
     elif args.gibbs:
         print(f"config: {args.model} blocked Gibbs, {args.chains} chains, "
-              f"{args.iters} sweeps, T={T}")
+              f"{args.iters} sweeps, T={T_len}")
     elif args.kind != "pf":
         print(f"config: {args.model} kind={args.kind}, {args.chains} chains, "
-              f"S={S}, B={B}, T={T}")
+              f"S={S}, B={B}, T={T_len}")
     else:
         print(f"config: {args.iter_type}, {args.model} (kernel "
               f"{args.kernel or 'default'}), {args.chains} chains, N={N}, "
               f"S={kw['subsequence_length']}, B={kw['buffer_length']}, "
-              f"T={T}, {args.pf}, {args.resampler} resampling, "
+              f"T={T_len}, {args.pf}, {args.resampler} resampling, "
               f"rng={args.rng}")
     if args.iter_type == "SGLD-CV":
         kw.update(centering_parameters=start, centering_gradient=(
@@ -282,7 +289,8 @@ def main():
     for us, n in fused:
         msg = f"fused window: {us / n / 1e3:.3f} ms per call"
         if args.rng == "host":
-            stream = args.chains * W * Z * N * 4 / (us / n / 1e6)
+            W_k = args.subsequence + 2 * args.buffer
+            stream = args.chains * W_k * Z * N * 4 / (us / n / 1e6)
             msg += (f", normals streamed at {stream / 1e9:.1f} GB/s = "
                     f"{stream / bw:.2%} of the copy rate")
         print(f"{msg} ({card})")

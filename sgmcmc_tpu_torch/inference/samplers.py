@@ -1158,15 +1158,21 @@ _UNPORTED_SAMPLERS = {"gauss_hmm": "slice 12 (the HMM family)",
                       "slds": "slice 13 (the SLDS)"}
 
 
+def check_ported(model_name: str) -> None:
+    """Raise ``NotImplementedError`` naming the slice for a model of the
+    JAX package whose sampler is not ported yet."""
+    if model_name in _UNPORTED_SAMPLERS:
+        raise NotImplementedError(
+            f"the {model_name} sampler is not ported yet (ROADMAP.md, "
+            f"Queue 1, {_UNPORTED_SAMPLERS[model_name]})")
+
+
 def sampler_for_model(model_name: str, **kwargs) -> Sampler:
     """Model name -> sampler instance (the one dispatch point generic code
     uses); ``kwargs`` go to the sampler's constructor."""
     classes = {"svm": SVMSampler, "svjm": SVJMSampler,
                "garch": GARCHSampler, "lgssm": LGSSMSampler}
-    if model_name in _UNPORTED_SAMPLERS:
-        raise NotImplementedError(
-            f"the {model_name} sampler is not ported yet (ROADMAP.md, "
-            f"Queue 1, {_UNPORTED_SAMPLERS[model_name]})")
+    check_ported(model_name)
     if model_name not in classes:
         raise ValueError(f"Unknown model '{model_name}' (choose from "
                          f"{sorted([*classes, *_UNPORTED_SAMPLERS])})")

@@ -82,7 +82,8 @@ class GARCHParams:
 
     @property
     def tau(self):
-        return 1.0 / torch.abs(self.lrinv)
+        # abs, not torch.abs: parameters with numpy leaves have it too
+        return 1.0 / abs(self.lrinv)
 
     def to(self, device) -> "GARCHParams":
         return params_map(lambda x: x.to(device), self)

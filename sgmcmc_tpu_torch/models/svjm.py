@@ -86,6 +86,24 @@ class SVJMParams:
     def pJ(self):
         return torch.sigmoid(self.logit_pJ[:, 0])
 
+    # the natural coordinates of the experiments' metrics and KSD [C]
+    # (abs, not torch.abs: parameters with numpy leaves have them too)
+    @property
+    def phi(self):
+        return self.a
+
+    @property
+    def sigma(self):
+        return 1.0 / abs(self.lqinv)
+
+    @property
+    def tau(self):
+        return 1.0 / abs(self.lrinv)
+
+    @property
+    def sigmaJ(self):
+        return 1.0 / abs(self.lqjinv)
+
     def to(self, device) -> "SVJMParams":
         return params_map(lambda x: x.to(device), self)
 

@@ -68,6 +68,20 @@ class SVMParams:
     def R(self):
         return 1.0 / self.rinv
 
+    # the natural coordinates of the experiments' metrics and KSD [C]
+    # (abs, not torch.abs: parameters with numpy leaves have them too)
+    @property
+    def phi(self):
+        return self.a
+
+    @property
+    def sigma(self):
+        return 1.0 / abs(self.lqinv)
+
+    @property
+    def tau(self):
+        return 1.0 / abs(self.lrinv)
+
     def to(self, device) -> "SVMParams":
         return params_map(lambda x: x.to(device), self)
 
