@@ -201,12 +201,33 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      8192`` fit with exactly 20 x 60 resample-apply launches and no K1,
      eval, KSD in blocks and as a loop, process_out with pandas and
      matplotlib not loaded) and on the LGSSM (Gibbs, the Kalman score, KS
-     tests); ``--model gauss_hmm --setup`` raising; the gradient-error
+     tests); ``--model slds --setup`` raising; a driver fit stopped at
+     its checkpoint and resumed bitwise equal to the uninterrupted one
+     (SGLD and ADAGRAD, whose accumulator the resume state carries, at 1
+     and 3 chains); the gradient-error
      figure at ``run``'s defaults (its bias falling from B=0 to B=20 at
      N=1000; the LGSSM's exact truth on the card against the CPU); the
      demo on synthetic segments (``--mode single`` and ``subset``,
      ``save_params``, ``calculate_ksd``) and its SGLD-against-LD KSD
      comparison (LD's phi KSD below half SGLD's).
+ 26. the HMM family at the experiment driver's setting (GaussHMM and
+     ARPHMM, K=2, m=1, p=1, T=1000, float64; plain PyTorch, no kernel:
+     every call checks 0 launches of K1 and resample-apply): the marginal
+     log-likelihood, its gradient, the posterior marginals and the lagged
+     marginals on the card against the CPU (64 chains, K=2, m=1, T=1000
+     and K=3, m=2, T=200; normwise relative difference at most 1e-9);
+     ``fit_scan("SGLD")`` at 8192 chains on the exact messages (S=16,
+     B=4 and S=40, B=10) and the complete kind, ``sample_sgld_scir`` at
+     8192 chains (every pi finite and positive; SCIR's noncentral
+     chi-square draws at epsilon 0.1 finite and >= 0 for every chain) and
+     Gibbs sweeps of 1024 chains, with their steps/s or seconds a sweep;
+     Gibbs recovery of mu / D (after 20 sweeps of 1024 chains, the
+     chains' median within 4 posterior standard deviations of the truth);
+     FFBS marginals against the smoothed ones (chi-square over 8192
+     paths, p > 1e-3); the Seq samplers on
+     ``SEQ_LENGTHS``; ``predict`` at T=1000 with ``metric_compare_z``;
+     the driver's HMM grid for the GaussHMM (setup at T=1000, GIBBS, SGLD
+     at B=0 and 4 and SCIR for 2 iterations, eval, KSD, KS).
 The last three lines are the kernel report (JSON), the card's
 ``nvidia-smi`` name and power limit, and the result (JSON).
 Exits non-zero without a result when no CUDA device is available.
@@ -1316,7 +1337,8 @@ EXPERIMENT_SHAPES = dict(grad_truth=(4, 100000, 4), driver=(1, 1000, 4))
 # predictive steps, points), KSD (N, samples), loop-timed scores, LGSSM
 # iterations); figs: gradient_error_figs.run's defaults; demo: segment
 # lengths, N, SGLD / LD iterations, save_params / calculate_ksd settings;
-# gate: the SGLD-against-LD KSD ordering of tests/test_ksd_sgld_vs_ld.py
+# gate: the SGLD-against-LD KSD ordering of tests/test_ksd_sgld_vs_ld.py;
+# resume: iterations before and after the checkpoint, particles
 # The host-bound single-chain loops are cut to keep the phase's time (a
 # default-grid fit iteration takes 0.4-1.3 s, an eval point ~3.7 s, a
 # Gibbs or Kalman-score iteration ~0.45 s, a PaRIS score at N=10000 over
@@ -1329,7 +1351,7 @@ EXPERIMENT_SIZES = dict(
     demo=dict(lengths=SEQ_LENGTHS, N=1000, sgld=2000, ld=3, fit_time=5.0,
               save_N=10000, save_chunk=50, ksd_samples=2, ksd_N=10000),
     gate=dict(T=125, sgld=3000, ld=600, N=128, ksd_N=256, samples=60),
-    shapes=EXPERIMENT_SHAPES)
+    resume=dict(iters=2, N=256), shapes=EXPERIMENT_SHAPES)
 
 
 def experiments_phase(dev, card, sizes=EXPERIMENT_SIZES):
@@ -1538,13 +1560,16 @@ def experiments_phase(dev, card, sizes=EXPERIMENT_SIZES):
 
     # (d) a model not ported yet raises at --setup
     try:
-        driver.main(["--setup", "--model", "gauss_hmm", "--path",
-                     os.path.join(tmp, "hmm"), "--device", dev.type])
+        driver.main(["--setup", "--model", "slds", "--path",
+                     os.path.join(tmp, "slds"), "--device", dev.type])
     except NotImplementedError as e:
-        phase("25 driver unported", f"--model gauss_hmm --setup raises "
+        phase("25 driver unported", f"--model slds --setup raises "
               f"NotImplementedError: {e}")
     else:
-        raise AssertionError("--model gauss_hmm --setup did not raise")
+        raise AssertionError("--model slds --setup did not raise")
+
+    # (d') resume: the resumed fits equal the uninterrupted ones
+    driver_resume_check(dev, tmp, T_len, sizes["resume"])
 
     # (e) the gradient-error figure at run's defaults
     fz = sizes["figs"]
@@ -1689,6 +1714,392 @@ def experiments_phase(dev, card, sizes=EXPERIMENT_SIZES):
                              f"{k_of}")
     phase("25 seconds", f"{time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def driver_resume_check(dev, tmp, T_len, rz):
+    """Phase 25's resume check: a driver fit (the SVM's POYIADJIS_N_1000,
+    B=10, prior init, ``rz['N']`` particles) stopped at its checkpoint and
+    resumed equals the uninterrupted fit bitwise, SGLD and ADAGRAD (whose
+    accumulator the resume state carries), at 1 and 3 chains."""
+    import os
+    import numpy as np
+    from sgmcmc_tpu_torch.experiments import driver
+    for iter_type in ("SGLD", "ADAGRAD"):
+        for n_ch in (1, 3):
+            traces = {}
+            for label, stops in (("once", [2 * rz["iters"]]),
+                                 ("resumed", [rz["iters"], 2 * rz["iters"]])):
+                path = os.path.join(tmp, f"resume_{iter_type}_{n_ch}_{label}")
+                rargs = driver.build_parser().parse_args([
+                    "--path", path, "--model", "svm", "--device", dev.type,
+                    "--T", str(T_len), "--T_test", str(T_len)])
+                rargs.num_chains = n_ch
+                ro = driver.do_setup(rargs, [dict(
+                    o, N=rz["N"], steps_per_iteration=1,
+                    checkpoint_num_iters=rz["iters"], iter_type=iter_type)
+                    for o in driver.default_sampler_grid("svm")
+                    if o["name"] == "POYIADJIS_N_1000"
+                    and o["buffer_length"] == 10])
+                for stop in stops:
+                    driver.do_fit(rargs, dict(ro[0], max_num_iters=stop))
+                tr = driver.ckpt.load_trace(os.path.join(
+                    path, "out", "fit", "0_parameters.p"))
+                traces[label] = np.stack([np.concatenate(
+                    [np.ravel(getattr(q, f)) for f in
+                     ("A", "LQinv_vec", "LRinv_vec")])
+                    for q in tr["parameters_list"]])
+            diff = float(np.abs(traces["resumed"] - traces["once"]).max())
+            phase("25 driver resume", f"{iter_type}, {n_ch} chain(s), N="
+                  f"{rz['N']}: {2 * rz['iters']} iterations at once against "
+                  f"{rz['iters']} + {rz['iters']} resumed: max |resumed - "
+                  f"uninterrupted| = {diff!r} (bitwise equal "
+                  f"{diff == 0.0})")
+            if diff != 0.0:
+                raise AssertionError(f"the resumed {iter_type} fit at "
+                                     f"{n_ch} chains differs by {diff}")
+
+
+# Phase 26: the HMM family at the experiment driver's setting (GaussHMM and
+# ARPHMM, K=2, m=1, p=1, T=1000, float64; no particle filter, so no kernel
+# of this script runs on its path): card against CPU, the fits at full
+# width, the statistical checks, the Seq samplers, predict and the driver's
+# HMM grid.  The card-vs-CPU shapes: the driver's (64 chains of random
+# parameters, K=2, m=1, T=1000) and K=3, m=2 (T=200).
+HMM_SIZES = dict(T=T, C=C_BENCH, iters=ITERS, oracle=(64, 200),
+                 gibbs=(1024, 3), recovery=(1024, 20), ffbs=(C_BENCH, 200),
+                 seq=SEQ_LENGTHS, seq_iters=5, driver_iters=2,
+                 driver_eval=(2, 5), ksd_samples=4)
+# Gibbs recovery: the chains' median location (the last half of the
+# sweeps averaged) within this many posterior standard deviations of the
+# driver's true locations (mu = -1, 1; D = -0.7, 0.7), the posterior sd
+# read as the chains' spread at the last sweep (each chain's draw is one
+# from the posterior); the data's own posterior centre lies within about
+# 2 of them of the truth
+HMM_GIBBS_SDS = 4.0
+
+
+def hmm_phase(dev, card, sizes=HMM_SIZES):
+    """Phase 26 on ``dev`` (the CPU for a rehearsal at small ``sizes``):
+    the HMM family's exact messages on the card against the CPU, SGLD
+    (marginal and complete kinds), SCIR and Gibbs at full width, Gibbs
+    recovery, SCIR's draws, FFBS in law, the Seq samplers, predict and the
+    experiment driver's HMM grid."""
+    import dataclasses
+    import os
+    import tempfile
+    import numpy as np
+    from scipy import stats
+    from sgmcmc_tpu_torch.experiments import driver
+    from sgmcmc_tpu_torch.inference import samplers, sgmcmc
+    from sgmcmc_tpu_torch.metrics import metric_functions as mf
+    from sgmcmc_tpu_torch.models import arphmm, gauss_hmm, registry
+    from sgmcmc_tpu_torch.models.base import params_map
+    from sgmcmc_tpu_torch.ops import hmm
+    from sgmcmc_tpu_torch.ops.cuda import fused_pf, resample
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(26)
+    names = ("gauss_hmm", "arphmm")
+    mods = {"gauss_hmm": gauss_hmm, "arphmm": arphmm}
+    T_len, C = sizes["T"], sizes["C"]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        """(result, seconds, (K1, resample-apply) launches) of fn(); the
+        HMM paths launch neither."""
+        sync()
+        reset_counts(fused_pf, resample)
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        got = (fused_pf.fused_window.launches,
+               resample.resample_apply.launches)
+        if got != (0, 0):
+            raise AssertionError(f"an HMM path launched {got}")
+        return res, time.perf_counter() - t0
+
+    truth = {n: driver._make_true_params(n, device=dev) for n in names}
+    start = {"gauss_hmm": gauss_hmm.from_values(
+        [[0.5, 0.5]] * 2, [[-0.5], [0.5]], [[1.0]], device=dev),
+        "arphmm": arphmm.from_values(
+            [[0.5, 0.5]] * 2, [[[0.3]], [[-0.3]]], [[1.0]], device=dev)}
+    data = {n: registry.get_model(n).generate_data(gen, truth[n], T_len)
+            for n in names}
+    loc = {"gauss_hmm": "mu", "arphmm": "D"}
+
+    # (a) the exact messages on the card against the CPU, float64, on the
+    # same parameters and observations
+    rng = np.random.default_rng(26)
+
+    def random_chains(name, n, k, m):
+        pis = rng.dirichlet(np.ones(k) * 3, size=(n, k))
+        A = rng.standard_normal((n, k, m, m)) * 0.3
+        R = A @ np.swapaxes(A, -1, -2) + np.eye(m) * 0.5
+        Lr = np.linalg.cholesky(np.linalg.inv(R))
+        rows, cols = np.tril_indices(m)
+        locs = (rng.standard_normal((n, k, m)) if name == "gauss_hmm"
+                else 0.4 * rng.standard_normal((n, k, m, m)))
+        cls = (gauss_hmm.GaussHMMParams if name == "gauss_hmm"
+               else arphmm.ARPHMMParams)
+        return cls(*[torch.as_tensor(x, dtype=torch.float64) for x in (
+            np.log(pis), locs, Lr[..., rows, cols])])
+
+    def oracle(name, p, ys):
+        mod = mods[name]
+        logP = mod.emission_logliks(p, ys)
+        fwd, bwd = (mod.default_forward_message(p),
+                    mod.default_backward_message(p))
+        joint, marg = hmm.posterior_marginals(logP, p.pi, fwd, bwd)
+        g = mod.gradient_marginal_loglikelihood(p, ys)
+        return ([mod.marginal_loglikelihood(p, ys), joint, marg]
+                + [getattr(g, f.name) for f in
+                   dataclasses.fields(g)]
+                + [mod.latent_var_distr(p, ys, lag=lag)
+                   for lag in (None, 0, -2, 3)])
+
+    n_or, T_or = sizes["oracle"]
+    worst = 0.0
+    for name in names:
+        for k, m, T_c in ((2, 1, T_len), (3, 2, T_or)):
+            p = random_chains(name, n_or, k, m)
+            lags = int(name == "arphmm")              # p = 1
+            ys = registry.get_model(name, num_states=k, m=m).generate_data(
+                None, params_map(lambda x: x[:1], p), T_c,
+                draws=(torch.as_tensor(rng.random(T_c + lags + 1)),
+                       torch.as_tensor(rng.standard_normal(
+                           (T_c + lags, m)))))[0]
+            (out_card, secs) = timed(lambda: oracle(
+                name, p.to(dev), ys.to(dev)))
+            out_cpu = oracle(name, p, ys)
+            rel = max(float((a.cpu() - b).norm() / b.norm())
+                      for a, b in zip(out_card, out_cpu))
+            worst = max(worst, rel)
+            phase("26 exact card-cpu", f"{name} K={k} m={m} T={T_c}, "
+                  f"{n_or} chains: the marginal log-likelihood, its "
+                  f"gradient, the posterior marginals and latent_var_distr "
+                  f"(lag None, 0, -2, 3), float64: largest normwise "
+                  f"relative difference {rel:.3e} (bound 1e-9); {secs:.2f} "
+                  f"s on {dev.type}")
+    if not worst <= 1e-9:
+        raise AssertionError(f"HMM card vs CPU {worst}")
+
+    # (b) the fits at full width: SGLD on the exact messages at the
+    # driver's S=16, B=4 and at S=40, B=10, the complete kind, SCIR and
+    # Gibbs, with their steps/s
+    iters = sizes["iters"]
+    rates = {}
+    for name in names:
+        ys = data[name][0]
+        for label, kw in (("marginal S=16 B=4", dict(
+                kind="marginal", subsequence_length=16, buffer_length=4)),
+                ("marginal S=40 B=10", dict(
+                    kind="marginal", subsequence_length=40,
+                    buffer_length=10)),
+                ("complete S=16 B=4", dict(
+                    kind="complete", num_samples=1, subsequence_length=16,
+                    buffer_length=4))):
+            smp = samplers.sampler_for_model(name, observations=ys,
+                                             device=dev, seed=1,
+                                             parameters=start[name])
+            smp.fit_scan("SGLD", num_iters=2, num_chains=C, record="none",
+                         **kw)
+            _, secs = timed(lambda: smp.fit_scan(
+                "SGLD", num_iters=iters, num_chains=C, record="none", **kw))
+            check_finite(f"{name} {label}", smp.parameters.logit_pi,
+                         getattr(smp.parameters, loc[name]))
+            rates[(name, label)] = C * iters / secs
+            phase("26 fit", f"{name} SGLD {label}: {C} chains x {iters} "
+                  f"iterations in {secs:.3f} s, {C * iters / secs:,.0f} "
+                  f"steps/s, (K1, resample-apply) launches (0, 0) ({card})")
+        smp = samplers.sampler_for_model(name, observations=ys, device=dev,
+                                         seed=2, parameters=start[name])
+        smp._chain_init_params(C, "replicate")
+        kw = dict(subsequence_length=16, buffer_length=4)
+        smp.sample_sgld_scir(0.1, **kw)
+        _, secs = timed(lambda: [smp.sample_sgld_scir(0.1, **kw)
+                                 for _ in range(iters)])
+        pi = smp.parameters.pi
+        ok = bool(torch.isfinite(pi).all() and (pi > 0).all())
+        rates[(name, "SCIR")] = C * iters / secs
+        # SCIR's noncentral chi-square draws at the driver's epsilon on
+        # this state's Dirichlet statistics
+        score = sgmcmc.make_marginal_score_fn(
+            lambda q, w, v, wt, B_, S_: smp.model.windowed_marginal_gradient(
+                q, w, v, wt, B_, S_, use_scir=True),
+            smp._score_config(**kw), smp.T)
+        a = score(gen, smp.parameters, smp.observations)[0].logit_pi \
+            + smp.prior.alpha_pi
+        decay = float(np.exp(-0.1))
+        W = hmm.sample_noncentral_chi2(
+            gen, 2.0 * a, 2.0 * torch.exp(smp.parameters.logit_pi) * decay
+            / (1.0 - decay))
+        w_ok = bool(torch.isfinite(W).all() and (W >= 0).all())
+        ratio = rates[(name, "SCIR")] / rates[(name, "marginal S=16 B=4")]
+        phase("26 SCIR", f"{name}: {C} chains x {iters} steps in {secs:.3f} "
+              f"s, {C * iters / secs:,.0f} steps/s ({ratio:.2f}x SGLD's); "
+              f"every pi finite and > 0 {ok} (min {float(pi.min()):.3e}); "
+              f"W at eps=0.1 finite and >= 0 for every chain {w_ok} (min "
+              f"{float(W.min()):.3e}, {int((W == 0).sum())} of "
+              f"{W.numel()} zero) ({card})")
+        if not (ok and w_ok):
+            raise AssertionError(f"{name} SCIR: pi {ok}, W {w_ok}")
+        Cg, sweeps = sizes["gibbs"]
+        smp = samplers.sampler_for_model(name, observations=ys, device=dev,
+                                         seed=3, parameters=start[name])
+        smp._chain_init_params(Cg, "replicate")
+        smp.sample_gibbs()
+        _, secs = timed(lambda: [smp.sample_gibbs() for _ in range(sweeps)])
+        check_finite(f"{name} Gibbs", smp.parameters.logit_pi)
+        phase("26 Gibbs", f"{name}: {sweeps} sweeps of {Cg} chains at "
+              f"T={T_len} in {secs:.3f} s, {secs / sweeps:.4f} s a sweep "
+              f"({card})")
+
+    # (c) statistical checks: Gibbs recovery of the locations, FFBS in law
+    Cr, sweeps = sizes["recovery"]
+    for name in names:
+        smp = samplers.sampler_for_model(name, observations=data[name][0],
+                                         device=dev, seed=4,
+                                         parameters=start[name])
+        smp._chain_init_params(Cr, "replicate")
+        kept = []
+        for i in range(sweeps):
+            smp.sample_gibbs()
+            if i >= sweeps // 2:
+                kept.append(torch.sort(getattr(smp.parameters, loc[name])
+                                       .reshape(Cr, -1), -1)[0])
+        est = torch.stack(kept).mean(0)                # [Cr, K]
+        want = torch.sort(getattr(truth[name], loc[name]).reshape(-1))[0]
+        med = est.median(0).values
+        sd = kept[-1].std(0)
+        zs = ((med - want).abs() / sd).cpu().numpy()
+        first = getattr(start[name], loc[name]).reshape(-1).tolist()
+        phase("26 Gibbs recovery", f"{name}: {Cr} chains, {sweeps} sweeps "
+              f"from pi uniform, {loc[name]} = {first}, R = 1, the last "
+              f"{sweeps - sweeps // 2} averaged: the chains' median sorted "
+              f"{loc[name]} {med.cpu().numpy().round(4)} against "
+              f"{want.cpu().numpy()}, posterior sd (the chains' spread at "
+              f"the last sweep) {sd.cpu().numpy().round(4)}: "
+              f"{zs.round(2)} sds off (held below {HMM_GIBBS_SDS})")
+        if not float(zs.max()) < HMM_GIBBS_SDS:
+            raise AssertionError(f"{name} Gibbs recovery {med} vs {want}")
+    Cf, T_f = sizes["ffbs"]
+    ys = data["gauss_hmm"][0][:T_f]
+    p1 = truth["gauss_hmm"]
+    rows = params_map(lambda x: x.expand((Cf,) + x.shape[1:]), p1)
+    z, secs = timed(lambda: gauss_hmm.latent_var_sample(rows, gen, ys))
+    probs = gauss_hmm.latent_var_distr(p1, ys)[0].cpu().numpy()
+    zc = z.cpu().numpy()
+    counts = np.stack([(zc == j).sum(0) for j in range(2)], -1)
+    expected = Cf * probs
+    keep = expected.min(-1) >= 5
+    chi2 = float(((counts - expected) ** 2 / expected)[keep].sum())
+    pval = float(stats.chi2.sf(chi2, int(keep.sum())))
+    phase("26 FFBS", f"gauss_hmm: {Cf} FFBS paths of T={T_f} on the card "
+          f"({secs:.3f} s) against the smoothed marginals: chi-square "
+          f"{chi2:.1f} on {int(keep.sum())} degrees of freedom (rows with "
+          f"5 or more expected draws in each state), p = {pval:.4f} (held "
+          f"above 1e-3)")
+    if not pval > 1e-3:
+        raise AssertionError(f"FFBS marginals p = {pval}")
+
+    # (d) the Seq samplers on SEQ_LENGTHS, one sequence a gradient
+    for name in names:
+        model = registry.get_model(name)
+        seqs = [model.generate_data(gen, truth[name], n)[0]
+                for n in sizes["seq"]]
+        cls = (samplers.SeqGaussHMMSampler if name == "gauss_hmm"
+               else samplers.SeqARPHMMSampler)
+        smp = cls(seqs, device=dev, seed=5, parameters=start[name])
+        kw = dict(subsequence_length=16, buffer_length=4, num_sequences=1)
+        smp.fit_scan("SGLD", num_iters=1, num_chains=C, record="none", **kw)
+        n_it = sizes["seq_iters"]
+        _, secs = timed(lambda: smp.fit_scan(
+            "SGLD", num_iters=n_it, num_chains=C, record="none", **kw))
+        ll = smp.exact_loglikelihood()
+        check_finite(f"Seq {name}", smp.parameters.logit_pi, ll)
+        phase("26 Seq", f"{cls.__name__} on {len(seqs)} sequences of "
+              f"{min(sizes['seq'])}-{max(sizes['seq'])} steps, S=16, B=4, "
+              f"one sequence a gradient: {C} chains x {n_it} iterations in "
+              f"{secs:.3f} s, {C * n_it / secs:,.0f} steps/s; exact "
+              f"log-likelihood finite for every chain ({card})")
+
+    # (e) predict at T=1000, one chain at the truth
+    for name in names:
+        smp = samplers.sampler_for_model(name, observations=data[name][0],
+                                         device=dev, seed=6,
+                                         parameters=truth[name])
+        probs, secs = timed(lambda: smp.predict())
+        _, secs_s = timed(lambda: smp.predict(num_samples=100))
+        _, secs_l = timed(lambda: smp.predict(lag=5))
+        rows = mf.metric_compare_z(data[name][1].cpu().numpy())(smp)
+        acc = rows[-1]["value"]
+        phase("26 predict", f"{name} T={T_len}: smoothed state "
+              f"probabilities {secs:.3f} s, 100 FFBS paths {secs_s:.3f} s, "
+              f"lag 5 {secs_l:.3f} s; metric_compare_z " + ", ".join(
+                  f"{r['metric']} {r['value']:.3f}" for r in rows)
+              + f" ({card})")
+        # the GaussHMM's states lie 2.8 emission sds apart; the ARPHMM's
+        # differ in the sign of their AR coefficient alone (printed)
+        if not (np.allclose(probs.sum(-1), 1.0)
+                and (name == "arphmm" or acc > 0.7)):
+            raise AssertionError(f"{name} predict: accuracy {acc}")
+
+    # (f) the experiment driver's HMM grid for the GaussHMM: setup at
+    # T=1000, every fit (iterations cut), eval, KSD, KS and
+    # metric_compare_z on the Gibbs fit
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_26_")
+    args = driver.build_parser().parse_args([
+        "--path", os.path.join(tmp, "gauss_hmm"), "--model", "gauss_hmm",
+        "--device", dev.type, "--T", str(T_len), "--T_test", str(T_len)])
+    args.num_to_eval, args.eval_predictive = sizes["driver_eval"]
+    args.max_ksd_samples = sizes["ksd_samples"]
+    grid = [dict(o, max_num_iters=sizes["driver_iters"])
+            for o in driver.default_sampler_grid("gauss_hmm")]
+    opts, secs = timed(lambda: driver.do_setup(args, grid))
+    phase("26 driver setup", f"gauss_hmm T={T_len}: {len(opts)} experiments "
+          f"({', '.join(sorted({o['name'] for o in opts}))}) in {secs:.2f} "
+          f"s; max_num_iters cut to {sizes['driver_iters']}")
+    dd = driver.ckpt.load_pickle(os.path.join(tmp, "gauss_hmm", "in",
+                                              "data.p"))
+    for o in opts:
+        smp, secs = timed(lambda: driver.do_fit(args, o))
+        finite = all(bool(torch.isfinite(x).all()) for x in (
+            smp.parameters.logit_pi, smp.parameters.mu,
+            smp.parameters.LRinv_vec))
+        # SGLD at the grid's epsilon=0.1 from a far prior draw (mu ~ N(0,
+        # 100 R)) can diverge, in the JAX package's sampler as in the
+        # port's: only the truth-init and Gibbs fits are held finite
+        if not finite and (o["init_method"] == "truth"
+                           or o["name"] == "GIBBS"):
+            raise AssertionError(f"driver fit {o['experiment_id']} is not "
+                                 f"finite")
+        msg = f"; parameters finite {finite}"
+        if o["name"] == "GIBBS":
+            rows = mf.metric_compare_z(dd["latent_vars"])(smp)
+            msg += "; metric_compare_z " + ", ".join(
+                f"{r['metric']} {r['value']:.3f}" for r in rows)
+        phase("26 driver fit", f"{o['name']} B={o.get('buffer_length')} "
+              f"init={o['init_method']}: {sizes['driver_iters']} iterations "
+              f"x {o.get('steps_per_iteration', 1)} steps in {secs:.2f} s"
+              f"{msg}")
+    ev = next(o for o in opts if o["name"] == "SCIR"
+              and o["init_method"] == "truth")
+    _, secs = timed(lambda: driver.do_eval(args, ev, "half_avg_test"))
+    ksd, secs_k = timed(lambda: driver.do_eval_ksd(args, ev))
+    ks_rows = driver.do_eval_ks_test(args, ev, opts)
+    agg = driver.do_process_out(args, opts)
+    phase("26 driver eval", f"SCIR (truth init): half_avg_test in "
+          f"{secs:.2f} s (num_to_eval {args.num_to_eval}, the exact "
+          f"{args.eval_predictive}-step predictive log-likelihood), KSD over "
+          f"{args.max_ksd_samples} exact scores in {secs_k:.2f} s {ksd}, "
+          f"{len(ks_rows)} KS rows, aggregated {len(agg)} rows")
+    if not all(np.isfinite(list(ksd.values()))):
+        raise AssertionError(f"HMM KSD {ksd}")
+    phase("26 seconds", f"{time.perf_counter() - t_phase:.1f} s")
+    return rates
 
 
 def paris_phase(dev, card, sizes=PARIS_SIZES):
@@ -3165,6 +3576,9 @@ def main():
     # the exchange-rate demo (resample-apply at C=4, N=100000 and at C=1,
     # N=1000; K1 at C=1, N=1000, W=24)
     exps = experiments_phase(dev, card)
+
+    # 26. the HMM family (no kernel of its own: exact messages, SCIR, Gibbs)
+    hmm_phase(dev, card)
 
     main_shape = ra_times["K2b"]
     k1_tpu = "sgmcmc_tpu/ops/pallas/fused_pf.py:121"

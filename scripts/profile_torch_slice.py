@@ -4,11 +4,11 @@
     python3 scripts/profile_torch_slice.py [--chains 8192] [--iters 20]
         [--runs 7] [--resampler systematic|multinomial|stratified]
         [--particles 1024] [--rng host|kernel]
-        [--model svm|lgssm|lgssm2|garch|svjm] [--kernel optimal|prior]
-        [--kind pf|marginal|complete] [--gibbs]
+        [--model svm|lgssm|lgssm2|garch|svjm|gauss_hmm|arphmm]
+        [--kernel optimal|prior] [--kind pf|marginal|complete] [--gibbs]
         [--pf poyiadjis_N|paris|paris_ar|...] [--subsequence 40]
         [--buffer 10] [--T 1000]
-        [--iter-type SGLD|SGRLD|SGD|SGRD|ADAGRAD|SGLD-CV]
+        [--iter-type SGLD|SGRLD|SGD|SGRD|ADAGRAD|SGLD-CV|SCIR|Gibbs]
         [--predict [--target latent|y] [--lag K] | --predictive K]
 
 Runs ``SVMSampler.fit_scan("SGLD", record="none")`` at the benchmark
@@ -43,7 +43,14 @@ one call.  With ``--model lgssm``, ``--kind marginal``
 or ``complete`` runs the exact-message score kinds instead of the particle
 filter's, and ``--gibbs`` times ``--iters`` blocked-Gibbs sweeps
 (``LGSSMSampler.sample_gibbs`` on every chain) in place of a fit; a step
-is then one chain's sweep.  It prints:
+is then one chain's sweep.  ``--model gauss_hmm`` / ``arphmm`` run the
+HMM family (``GaussHMMSampler`` / ``ARPHMMSampler``, K=2, m=1, p=1, at the
+experiment driver's true parameters; start pi uniform, mu = -0.5, 0.5 or
+D = 0.3, -0.3, R = 1; float64, no particle filter, so ``--kind`` defaults
+to ``marginal``; the driver's grid is ``--subsequence 16 --buffer 4``),
+where ``--iter-type SCIR`` times ``--iters`` ``sample_sgld_scir`` steps of
+every chain and ``--iter-type Gibbs`` (as ``--gibbs``) Gibbs sweeps.  It
+prints:
   - the card's ``nvidia-smi`` name and power limit;
   - aggregate steps/s of ``--runs`` timed fits after one warm-up (each run,
     then the median and the lower and upper quartile);
@@ -116,10 +123,11 @@ def main():
     ap.add_argument("--particles", type=int, default=1024)
     ap.add_argument("--rng", default="host", choices=("host", "kernel"))
     ap.add_argument("--model", default="svm",
-                    choices=("svm", "lgssm", "lgssm2", "garch", "svjm"))
+                    choices=("svm", "lgssm", "lgssm2", "garch", "svjm",
+                             "gauss_hmm", "arphmm"))
     ap.add_argument("--kernel", default=None,
                     choices=("optimal", "prior", "laplace", "ep", "ep_avg"))
-    ap.add_argument("--kind", default="pf",
+    ap.add_argument("--kind", default=None,
                     choices=("pf", "marginal", "complete"))
     ap.add_argument("--gibbs", action="store_true")
     ap.add_argument("--pf", default="poyiadjis_N")
@@ -128,18 +136,25 @@ def main():
     ap.add_argument("--T", type=int, default=T)
     ap.add_argument("--iter-type", default="SGLD",
                     choices=("SGLD", "SGRLD", "SGD", "SGRD", "ADAGRAD",
-                             "SGLD-CV"))
+                             "SGLD-CV", "SCIR", "Gibbs"))
     ap.add_argument("--predict", action="store_true")
     ap.add_argument("--target", default="latent", choices=("latent", "y"))
     ap.add_argument("--lag", type=int, default=None)
     ap.add_argument("--predictive", type=int, default=None)
     args = ap.parse_args()
+    hmm = args.model in ("gauss_hmm", "arphmm")
+    args.kind = args.kind or ("marginal" if hmm else "pf")
+    args.gibbs = args.gibbs or args.iter_type == "Gibbs"
+    scir = args.iter_type == "SCIR"
     calls = args.predict or args.predictive is not None
     N = args.particles
     if not torch.cuda.is_available():
         sys.exit("profile_torch_slice: no CUDA device is available")
     from sgmcmc_tpu_torch.inference import samplers
-    from sgmcmc_tpu_torch.models import garch, lgssm, registry, svjm, svm
+    from sgmcmc_tpu_torch.experiments.driver import _make_true_params
+    from sgmcmc_tpu_torch.models import (arphmm, garch, gauss_hmm, lgssm,
+                                         registry, svjm, svm)
+    from sgmcmc_tpu_torch.models.base import params_map
 
     def vector_sampler(observations, **kw):
         return samplers.LGSSMSampler(observations, n=2, m=2, **kw)
@@ -159,6 +174,13 @@ def main():
         "svjm": (samplers.SVJMSampler,
                  svjm.from_scalars(0.9, 0.5, 1.0, 0.1, 2.0),
                  svjm.from_scalars(0.5, 1.0, 2.0, 0.05, 1.0)),
+        "gauss_hmm": (samplers.GaussHMMSampler,
+                      _make_true_params("gauss_hmm"),
+                      gauss_hmm.from_values([[0.5, 0.5]] * 2,
+                                            [[-0.5], [0.5]], [[1.0]])),
+        "arphmm": (samplers.ARPHMMSampler, _make_true_params("arphmm"),
+                   arphmm.from_values([[0.5, 0.5]] * 2, [[[0.3]], [[-0.3]]],
+                                      [[1.0]])),
     }[args.model]
 
     card = subprocess.run(
@@ -179,7 +201,7 @@ def main():
               buffer_length=0 if full else args.buffer, pf=args.pf,
               resampler=args.resampler, rng=args.rng, kernel=args.kernel,
               kind=args.kind)
-    Z = sampler.model.get_kernel(args.kernel).noise_dim
+    Z = 1 if hmm else sampler.model.get_kernel(args.kernel).noise_dim
     if calls:
         sampler.parameters = truth
         what = (f"predictive_loglikelihood({args.predictive})"
@@ -190,9 +212,14 @@ def main():
     elif args.gibbs:
         print(f"config: {args.model} blocked Gibbs, {args.chains} chains, "
               f"{args.iters} sweeps, T={T_len}")
+    elif scir:
+        print(f"config: {args.model} SCIR, {args.chains} chains, S="
+              f"{kw['subsequence_length']}, B={kw['buffer_length']}, "
+              f"T={T_len}")
     elif args.kind != "pf":
-        print(f"config: {args.model} kind={args.kind}, {args.chains} chains, "
-              f"S={S}, B={B}, T={T_len}")
+        print(f"config: {args.iter_type}, {args.model} kind={args.kind}, "
+              f"{args.chains} chains, S={kw['subsequence_length']}, "
+              f"B={kw['buffer_length']}, T={T_len}")
     else:
         print(f"config: {args.iter_type}, {args.model} (kernel "
               f"{args.kernel or 'default'}), {args.chains} chains, N={N}, "
@@ -203,8 +230,7 @@ def main():
         kw.update(centering_parameters=start, centering_gradient=(
             sampler.noisy_gradient(**kw)))
 
-    if args.gibbs:
-        from sgmcmc_tpu_torch.models.base import params_map
+    if args.gibbs or scir:
         sampler.parameters = params_map(lambda x: x.expand(
             (args.chains,) + x.shape[1:]).contiguous(), start)
 
@@ -217,10 +243,16 @@ def main():
                 target=args.target, lag=args.lag, N=N, kernel=args.kernel,
                 pf="filter" if args.lag == 0 else args.pf)
             return float(mean.sum())
-        if args.gibbs:
+        if args.gibbs or scir:
             for _ in range(args.iters):
-                sampler.sample_gibbs()
-            return float(sampler.parameters.A.sum())    # synchronises
+                if scir:
+                    sampler.sample_sgld_scir(
+                        0.1, subsequence_length=kw["subsequence_length"],
+                        buffer_length=kw["buffer_length"])
+                else:
+                    sampler.sample_gibbs()
+            # synchronises
+            return float(sampler.parameters.LRinv_vec.sum())
         _, aux = sampler.fit_scan(args.iter_type, num_iters=args.iters,
                                   epsilon=0.1, num_chains=args.chains,
                                   record="none", return_aux=True, **kw)

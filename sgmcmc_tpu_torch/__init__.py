@@ -23,6 +23,10 @@ _EXPORTS = {
     "SeqGARCHSampler": "sgmcmc_tpu_torch.inference.samplers",
     "SeqSVJMSampler": "sgmcmc_tpu_torch.inference.samplers",
     "SeqLGSSMSampler": "sgmcmc_tpu_torch.inference.samplers",
+    "GaussHMMSampler": "sgmcmc_tpu_torch.inference.samplers",
+    "ARPHMMSampler": "sgmcmc_tpu_torch.inference.samplers",
+    "SeqGaussHMMSampler": "sgmcmc_tpu_torch.inference.samplers",
+    "SeqARPHMMSampler": "sgmcmc_tpu_torch.inference.samplers",
     "pack_sequences": "sgmcmc_tpu_torch.inference.samplers",
     "sampler_for_model": "sgmcmc_tpu_torch.inference.samplers",
     "ModelAPI": "sgmcmc_tpu_torch.models.registry",

@@ -46,6 +46,7 @@ import torch
 
 from ..evaluation.evaluator import (OfflineEvaluator, SamplerEvaluator,
                                     half_average_parameters_list)
+from ..inference import sgmcmc
 from ..inference.samplers import Sampler, check_ported, sampler_for_model
 from ..io import checkpoint as ckpt
 from ..io import tables
@@ -85,6 +86,8 @@ TRUE_PARAMS = {
                  A=[[[0.9]], [[-0.9]]],
                  Q=[[[0.5]], [[0.5]]], C=[[1.0]], R=[[0.5]]),
 }
+
+HMM_MODELS = ("gauss_hmm", "arphmm")
 
 
 def _flat(x) -> np.ndarray:
@@ -139,6 +142,17 @@ def convert_gradient(model_name: str, params, grad):
         grads = dict(A=_flat(grad.A),
                      Q=-0.5 * _flat(grad.LQinv_vec) * LQ ** 3,
                      R=-0.5 * _flat(grad.LRinv_vec) * LR ** 3)
+    elif model_name in HMM_MODELS:
+        # the m = 1 HMMs of the driver's setup: logit_pi rows and the
+        # location block in storage coordinates; tau_k = 1/LRinv_k, so
+        # g_tau = -g_LRinv * LRinv^2
+        LR = _flat(params.LRinv_vec)
+        loc = "mu" if model_name == "gauss_hmm" else "D"
+        vals = {"logit_pi": _flat(params.logit_pi),
+                loc: _flat(getattr(params, loc)), "tau": 1.0 / LR}
+        grads = {"logit_pi": _flat(grad.logit_pi),
+                 loc: _flat(getattr(grad, loc)),
+                 "tau": -_flat(grad.LRinv_vec) * LR ** 2}
     else:
         raise ValueError(f"no natural coordinates for {model_name}")
     return SimpleNamespace(**vals), SimpleNamespace(**grads)
@@ -162,6 +176,14 @@ def _make_true_params(model_name: str, dtype=torch.float64, device=None):
     if model_name == "garch":
         from ..models import garch
         return garch.from_alpha_beta_gamma(**p, dtype=dtype, device=device)
+    if model_name == "gauss_hmm":
+        from ..models import gauss_hmm
+        return gauss_hmm.from_values(p["pi"], p["mu"], p["R"], dtype=dtype,
+                                     device=device)
+    if model_name == "arphmm":
+        from ..models import arphmm
+        return arphmm.from_values(p["pi"], p["D"], p["R"], dtype=dtype,
+                                  device=device)
     raise ValueError(model_name)
 
 
@@ -172,8 +194,8 @@ def _paths(root):
 
 def _to_sampler(sampler: Sampler, params):
     """One parameter object (NumPy or tensor leaves) as tensors on the
-    sampler's device in its observations' dtype (the port's observations
-    are float32; a float64 init would promote the steps)."""
+    sampler's device in its observations' dtype (float32, float64 for the
+    HMMs; another init dtype would change the steps')."""
     return ckpt.tree_to_torch(params, device=sampler.device,
                               dtype=sampler.observations.dtype)
 
@@ -237,8 +259,20 @@ def do_setup(args, sampler_grid=None):
 def default_sampler_grid(model_name):
     """The default experiment grid: Poyiadjis O(N) with and without a
     buffer, Nemeth and PaRIS; the LGSSM adds Gibbs and the exact-message
-    (Kalman) score."""
+    (Kalman) score.  The HMMs have no particle filter: Gibbs, exact-message
+    SGLD with and without a buffer, and SCIR."""
     check_ported(model_name)
+    if model_name in HMM_MODELS:
+        grids = [
+            dict(iter_type=["Gibbs"], name=["GIBBS"]),
+            dict(iter_type=["SGLD"], kind=["marginal"], epsilon=[0.1],
+                 subsequence_length=[16], buffer_length=[0, 4],
+                 steps_per_iteration=[10], name=["SGLD"]),
+            dict(iter_type=["SCIR"], epsilon=[0.1],
+                 subsequence_length=[16], buffer_length=[4],
+                 steps_per_iteration=[10], name=["SCIR"]),
+        ]
+        return [o for g in grids for o in cfg.parameter_grid(g)]
     grids = [
         dict(iter_type=["SGLD"], epsilon=[0.1], subsequence_length=[40],
              buffer_length=[0, 10], steps_per_iteration=[10],
@@ -269,12 +303,13 @@ def default_sampler_grid(model_name):
 def _build_sampler(options, data, init_params, device,
                    obs_key: str = "observations") -> Sampler:
     """The model's sampler on ``device`` at ``init_params`` (one chain,
-    NumPy or tensor leaves, cast to the port's float32 observations)."""
+    NumPy or tensor leaves, cast to the model's dtype)."""
     return sampler_for_model(
         options["model"], observations=data[obs_key],
         seed=options.get("seed", 0), device=device,
-        parameters=ckpt.tree_to_torch(init_params, device=device,
-                                      dtype=torch.float32))
+        parameters=ckpt.tree_to_torch(
+            init_params, device=device,
+            dtype=get_model(options["model"]).dtype))
 
 
 def _metric_fns(options, data):
@@ -298,6 +333,23 @@ def _generator_state(sampler) -> np.ndarray:
 
 def _set_generator_state(sampler, state) -> None:
     sampler.generator.set_state(torch.from_numpy(np.asarray(state)))
+
+
+def _adagrad_state(sampler):
+    """The sampler's ADAGRAD state (accumulated squared gradients G and
+    step counts t) as NumPy, or None."""
+    st = sampler._adagrad_state
+    return None if st is None else dict(G=ckpt.tree_to_numpy(st.G),
+                                        t=st.t.cpu().numpy())
+
+
+def _set_adagrad_state(sampler, state) -> None:
+    """Restore :func:`_adagrad_state`'s output (None: a fresh state at the
+    first ADAGRAD step)."""
+    if state is not None:
+        sampler._adagrad_state = sgmcmc.AdagradState(
+            G=_to_sampler(sampler, state["G"]),
+            t=torch.as_tensor(state["t"], device=sampler.device))
 
 
 def _sampler_rng(device) -> str:
@@ -333,7 +385,7 @@ def do_fit_multichain(args, options):
             f"(SGLD/SGRLD/SGD/ADAGRAD), not {iter_type!r}")
     sampler = _build_sampler(options, data, init, args.device)
     step_kwargs = cfg.sampler_kwargs(options)
-    if step_kwargs.get("kind") is None:
+    if sampler.model.has_pf and step_kwargs.get("kind") is None:
         step_kwargs.setdefault("rng", _sampler_rng(sampler.device))
     eps = options.get("epsilon", 0.1)
     steps = options.get("steps_per_iteration", 1)
@@ -353,6 +405,7 @@ def do_fit_multichain(args, options):
         sampler.parameters = _to_sampler(sampler, state["parameters"])
         sampler._num_chains = state["num_chains"]
         _set_generator_state(sampler, state["generator_state"])
+        _set_adagrad_state(sampler, state.get("adagrad_state"))
         chain_init = "replicate"
         logger.info("resumed multichain fit %s at iteration %d",
                     options["experiment_id"], it)
@@ -370,7 +423,8 @@ def do_fit_multichain(args, options):
         ckpt.save_pickle(state_path, dict(
             chunks=chunks, times=times, iteration=it,
             parameters=ckpt.tree_to_numpy(sampler.parameters),
-            num_chains=C, generator_state=_generator_state(sampler)))
+            num_chains=C, generator_state=_generator_state(sampler),
+            adagrad_state=_adagrad_state(sampler)))
     trace = params_map(lambda *xs: np.concatenate(xs, axis=1), *chunks)
 
     out_dir = ckpt.make_path(os.path.join(p["out"], "fit"))
@@ -405,8 +459,9 @@ def do_fit(args, options):
     """Checkpointed single-chain fit loop over
     ``SamplerEvaluator.evaluate_sampler_step``, metrics every
     ``eval_freq`` seconds of sampler time and at the last iteration; the
-    resume state carries the generator's state, so a resumed fit equals
-    an uninterrupted one.  ``--num_chains C > 1``: :func:`do_fit_multichain`.
+    resume state carries the generator's state and ADAGRAD's, so a resumed
+    fit equals an uninterrupted one.  ``--num_chains C > 1``:
+    :func:`do_fit_multichain`.
     """
     if getattr(args, "num_chains", 1) > 1:
         return do_fit_multichain(args, options)
@@ -436,6 +491,7 @@ def do_fit(args, options):
         ev_state["parameters"] = _to_sampler(sampler, ev_state["parameters"])
         evaluator.load_state(ev_state)
         _set_generator_state(sampler, state["generator_state"])
+        _set_adagrad_state(sampler, state.get("adagrad_state"))
         parameters_list = state["parameters_list"]
         times = state["times"]
         start_iteration = state["iteration"]
@@ -532,9 +588,9 @@ def _iter_funcs(iter_type, options, step_kwargs):
         return ([step[iter_type], "project_parameters"],
                 [dict(epsilon=eps, **step_kwargs), {}])
     if iter_type == "SCIR":
-        raise NotImplementedError(
-            "iter_type SCIR (the HMM simplex update) is not ported yet "
-            "(ROADMAP.md, Queue 1, slice 12 (the HMM family))")
+        # SGLD with the exact Gamma-process simplex update; the projection
+        # is inside the step
+        return (["sample_sgld_scir"], [dict(epsilon=eps, **step_kwargs)])
     if iter_type == "Gibbs":
         return (["sample_gibbs", "project_parameters"], [{}, {}])
     raise ValueError(f"Unrecognized iter_type {iter_type}")
@@ -545,6 +601,7 @@ def _save_fit_state(path, evaluator, sampler, parameters_list, times,
     ckpt.save_pickle(path, dict(
         evaluator_state=ckpt.tree_to_numpy(evaluator.save_state()),
         generator_state=_generator_state(sampler),
+        adagrad_state=_adagrad_state(sampler),
         parameters_list=parameters_list,
         times=times,
         iteration=iteration,
@@ -611,10 +668,14 @@ def do_eval(args, options, target: str):
     metric_fns.append(mf.noisy_logjoint_loglike_metric(
         N=args.eval_N, subsequence_length=-1))
     if args.eval_predictive > 0:
-        # held-out k-step predictive log-likelihood rows (slot 0: the
-        # filter's log-likelihood)
-        metric_fns.append(mf.noisy_predictive_logjoint_loglike_metric(
-            args.eval_predictive, kind="pf", N=args.eval_N))
+        # held-out k-step predictive log-likelihood rows (the particle
+        # filter's, slot 0 its log-likelihood; the HMMs' exact one)
+        if sampler.model.has_pf:
+            metric_fns.append(mf.noisy_predictive_logjoint_loglike_metric(
+                args.eval_predictive, kind="pf", N=args.eval_N))
+        else:
+            metric_fns.append(mf.noisy_predictive_logjoint_loglike_metric(
+                args.eval_predictive, kind="marginal"))
     evaluator = OfflineEvaluator(
         sampler, [_to_sampler(sampler, q) for q in params_list], times,
         metric_functions=metric_fns)

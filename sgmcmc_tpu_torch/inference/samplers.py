@@ -3,15 +3,18 @@
 ``fit_timed``, ``fit_scan`` for every gradient iter type and
 ``fit_scan_chunked``, the chain plumbing, the likelihood surface, the
 predict surface (``predict``, ``predictive_loglikelihood``, ``simulate``
-and their aliases), the multi-sequence samplers and the LGSSM's blocked
-Gibbs sampler).
+and their aliases), the multi-sequence samplers, blocked Gibbs (LGSSM,
+GaussHMM, ARPHMM) and SCIR's SGLD on the HMMs' transition simplex).
 
-A :class:`Sampler` holds the model, the observations, the prior, the
-parameters (always with a leading chain axis: ``[1, ...]`` for one
-chain), a seeded ``torch.Generator`` and its ``device``: the card unless
-the caller passes ``device="cpu"``.  Without a card the default raises;
-it never falls back to the CPU.  The likelihoods return a float when the
-sampler holds one chain and a ``[C]`` tensor for C chains.
+A :class:`Sampler` holds the model, the observations (in the model's
+dtype: float32, float64 for the HMM family), the prior, the parameters
+(always with a leading chain axis: ``[1, ...]`` for one chain), a seeded
+``torch.Generator`` and its ``device``: the card unless the caller passes
+``device="cpu"``.  The default score kind is the particle filter's, or
+the exact messages' (``"marginal"``) for a model without one.  Without a
+card the default raises; it never falls back to the CPU.  The
+likelihoods return a float when the sampler holds one chain and a ``[C]``
+tensor for C chains.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 from ..io.checkpoint import unstack_trace
 from ..models.base import params_map
 from ..models.registry import ModelAPI, get_model
+from ..ops import hmm as hmm_ops
 from ..ops.buffered import run_buffered_pf
 from ..utils.profiling import sync
 from . import sgmcmc
@@ -72,7 +76,7 @@ class Sampler:
         if observations is not None:
             obs = torch.as_tensor(np.asarray(observations) if not isinstance(
                 observations, torch.Tensor) else observations)
-            obs = obs.to(device=self.device, dtype=torch.float32)
+            obs = obs.to(device=self.device, dtype=self.model.dtype)
             self.observations = obs[:, None] if obs.ndim == 1 else obs
         self.prior = (self.model.default_prior(device=self.device)
                       if prior is None else prior)
@@ -99,6 +103,10 @@ class Sampler:
     @property
     def T(self) -> int:
         return int(self.observations.shape[0])
+
+    def _default_kind(self) -> str:
+        """The score kind that ``kind=None`` means."""
+        return "pf" if self.model.has_pf else "marginal"
 
     def _score_config(self, **kwargs) -> sgmcmc.PFScoreConfig:
         if (kwargs.get("mesh") is not None
@@ -127,14 +135,14 @@ class Sampler:
     def _grad_fn(self, preconditioned: bool = False, is_scaled: bool = True,
                  kind: str | None = None, **kwargs):
         """The noisy-gradient function of the score ``kind``: the particle
-        filter's (``None`` or ``"pf"``) or, for models with exact message
-        passing, the buffered exact-message score (``"marginal"``) or the
-        FFBS complete-data score (``"complete"``, ``num_samples`` draws a
-        window).  ``preconditioned`` applies the model's SGRLD
-        preconditioner; ``is_scaled=False`` drops the 1/T of the
-        gradient."""
+        filter's (``"pf"``) or, for models with exact message passing, the
+        buffered exact-message score (``"marginal"``) or the FFBS
+        complete-data score (``"complete"``, ``num_samples`` draws a
+        window); ``None`` is :meth:`_default_kind`.  ``preconditioned``
+        applies the model's SGRLD preconditioner; ``is_scaled=False`` drops
+        the 1/T of the gradient."""
         m = self.model
-        kind = "pf" if kind is None else kind
+        kind = self._default_kind() if kind is None else kind
         cfg = self._score_config(**kwargs)
         kernel_name = kwargs.get("kernel")
         key = ("grad", cfg, kind, kernel_name, preconditioned, is_scaled,
@@ -176,7 +184,9 @@ class Sampler:
             return sgmcmc.make_marginal_score_fn(
                 m.windowed_complete_gradient, cfg, self.T, pass_draws=True,
                 num_samples=kwargs.get("num_samples", 1),
-                state_dim=m.get_kernel(kernel_name).state_dim)
+                state_dim=(m.get_kernel(kernel_name).state_dim if m.has_pf
+                           else 1),
+                discrete=not m.has_pf)
         if kind != "pf":
             raise ValueError(f"Unrecognized kind = '{kind}'")
         return sgmcmc.make_pf_score_fn(
@@ -209,16 +219,18 @@ class Sampler:
 
     def noisy_loglikelihood(self, kind: str | None = None, **kwargs):
         """A noisy log-likelihood per chain: the particle filter's
-        (``kind=None`` or ``"pf"``) or the exact-message score's buffered
-        one (``"marginal"``; the exact one for ``subsequence_length=-1``)
-        or the FFBS complete-data one (``"complete"``)."""
+        (``"pf"``) or the exact-message score's buffered one
+        (``"marginal"``; the exact one for ``subsequence_length=-1``) or the
+        FFBS complete-data one (``"complete"``); ``None`` is
+        :meth:`_default_kind`."""
+        kind = self._default_kind() if kind is None else kind
         if kind in ("marginal", "complete"):
             if kind == "marginal" and kwargs.get("subsequence_length",
                                                  -1) == -1:
                 return self.exact_loglikelihood()
             _, loglik = self._grad_fn(kind=kind, **kwargs)(
                 self.generator, self.parameters, self.observations)
-        elif kind in (None, "pf"):
+        elif kind == "pf":
             _, loglik = self._loglik_fn(**kwargs)(
                 self.generator, self.parameters, self.observations)
         else:
@@ -752,31 +764,39 @@ class Sampler:
         ``target`` is ``"latent"`` or ``"y"``; ``lag`` selects
         p(. | y_{<= t+lag}): None smoothed, 0 filtered (the PF path then
         needs ``pf="filter"``, its default there), k >= 1 fixed-lag.
-        ``kind="marginal"`` (the LGSSM) runs the exact messages in float64,
-        where ``num_samples`` draws ``distr="joint"`` (FFBS) or
-        ``"marginal"`` paths; other kinds run the particle filter with
-        elementwise statistics over the whole series (``kernel``,
-        ``resampler`` and ``resample_mode`` in ``kwargs``)."""
+        ``kind="marginal"`` (the default of the discrete-state models) runs
+        the exact messages in float64: the LGSSM's moments, the HMMs' state
+        probabilities ``[T, K]`` (latent target only), and with
+        ``num_samples`` draws ``distr="joint"`` (FFBS) or ``"marginal"``
+        paths; ``kind="pf"`` runs the particle filter with elementwise
+        statistics over the whole series (``kernel``, ``resampler`` and
+        ``resample_mode`` in ``kwargs``)."""
         if target not in ("latent", "y"):
             raise ValueError(f"Unrecognized target '{target}'")
         m = self.model
+        kind = self._default_kind() if kind is None else kind
         if kind == "marginal":
-            # the LGSSM is the one model with exact messages (the
-            # discrete-state models' come with slice 12)
             if m.latent_var_distr is None:
                 raise NotImplementedError(
+                    f"{m.name} has no exact messages: no analytic predict "
+                    f"for target='{target}'")
+            sample_fn = (m.latent_var_sample if target == "latent"
+                         else m.y_sample)
+            distr_fn = m.latent_var_distr if target == "latent" else m.y_distr
+            if distr_fn is None:
+                raise NotImplementedError(
                     f"{m.name} has no analytic predict for target="
-                    f"'{target}' (the discrete-state models' predict is "
-                    "ROADMAP.md, Queue 1, slice 12: the HMM family)")
+                    f"'{target}'")
             p, obs = self._exact_inputs("predict")
             if num_samples is not None:
-                fn = (m.latent_var_sample if target == "latent"
-                      else m.y_sample)
-                return fn(p, self.generator, obs, num_samples=num_samples,
-                          distr=distr or "joint", lag=lag)[0].cpu().numpy()
-            fn = m.latent_var_distr if target == "latent" else m.y_distr
-            mean, cov = fn(p, obs, lag=lag)
-            return mean[0].cpu().numpy(), cov[0].cpu().numpy()
+                return sample_fn(p, self.generator, obs,
+                                 num_samples=num_samples,
+                                 distr=distr or "joint",
+                                 lag=lag)[0].cpu().numpy()
+            out = distr_fn(p, obs, lag=lag)
+            if not isinstance(out, tuple):       # state probabilities
+                return out[0].cpu().numpy()
+            return out[0][0].cpu().numpy(), out[1][0].cpu().numpy()
         if num_samples is not None:
             raise NotImplementedError(
                 "joint posterior sampling is not available on the PF path")
@@ -852,8 +872,10 @@ class Sampler:
         chain: the particle filter's ``[K+1]`` numpy array (slot 0 the
         filter's log-likelihood, slot k the summed k-step-ahead predictive
         log-likelihood), or for ``kind="marginal"`` the exact
-        sum_t log p(y_t | y_{<= t-lag}) (float64)."""
+        sum_t log p(y_t | y_{<= t-lag}) (float64); ``None`` is
+        :meth:`_default_kind`."""
         m = self.model
+        kind = self._default_kind() if kind is None else kind
         if kind == "marginal":
             if m.predictive_loglikelihood is None:
                 raise NotImplementedError(
@@ -940,11 +962,12 @@ class SVJMSampler(Sampler):
 
 
 class GibbsSamplerMixin:
-    """Blocked Gibbs for conjugate models."""
+    """Blocked Gibbs for conjugate models (LGSSM, GaussHMM, ARPHMM)."""
 
     def sample_gibbs(self):
-        """One Gibbs sweep (x | theta by FFBS, then the conjugate theta |
-        x) for every chain the sampler holds, then the projection."""
+        """One Gibbs sweep (the latents | theta by FFBS, then the conjugate
+        theta | latents) for every chain the sampler holds, then the
+        projection."""
         m = self.model
         if m.gibbs_step is None:
             raise NotImplementedError(
@@ -963,6 +986,45 @@ class GibbsSamplerMixin:
 
             return step
         return super().get_iter_step(iter_type)
+
+
+class SCIRSamplerMixin:
+    """SGLD with the stochastic Cox-Ingersoll-Ross exact Gamma-process
+    update of the transition simplex (Baker et al. 2018): the logit_pi
+    slot of the score carries the unscaled Dirichlet statistic (the summed
+    pairwise posteriors plus the prior's alpha), which SCIR turns into new
+    simplex weights; every other parameter takes the Langevin update.  For
+    models whose parameters hold ``logit_pi`` and whose
+    ``windowed_marginal_gradient`` and ``grad_logprior`` take
+    ``use_scir`` (GaussHMM, ARPHMM)."""
+
+    def sample_sgld_scir(self, epsilon, **kwargs):
+        """One SCIR step of every chain the sampler holds (the projection,
+        without centring the new logits twice, inside the step)."""
+        m, T = self.model, self.T
+        cfg = self._score_config(**kwargs)
+        key = ("sgld_scir", cfg, T)
+        if key not in self._cache:
+            self._cache[key] = sgmcmc.make_marginal_score_fn(
+                lambda p, w, v, wt, B, S: m.windowed_marginal_gradient(
+                    p, w, v, wt, B, S, use_scir=True), cfg, T)
+        params = self.parameters
+        grad_ll, _ = self._cache[key](self.generator, params,
+                                      self.observations)
+        grad = params_map(lambda g, q: g + q, grad_ll,
+                          m.grad_logprior(self.prior, params, use_scir=True))
+        theta_new = hmm_ops.scir_update(self.generator,
+                                        torch.exp(params.logit_pi),
+                                        grad.logit_pi, epsilon)
+        new_logit = torch.log(torch.abs(theta_new) + 1e-99)
+        new_logit = new_logit - new_logit.mean(-1, keepdim=True)
+        scale = 1.0 / T
+        new = sgmcmc._langevin(params, params_map(lambda g: g * scale, grad),
+                               sgmcmc._normals_like(self.generator, params),
+                               epsilon, scale)
+        new = dataclasses.replace(new, logit_pi=new_logit)
+        self.parameters = m.project_parameters(new, center_logit=False)
+        return self.parameters
 
 
 class LGSSMSampler(GibbsSamplerMixin, Sampler):
@@ -1076,6 +1138,7 @@ class SeqSampler(Sampler):
         exact-message and sampling paths loop over the sequences."""
         if target not in ("latent", "y"):
             raise ValueError(f"Unrecognized target '{target}'")
+        kind = self._default_kind() if kind is None else kind
         if kind == "marginal" or num_samples is not None:
             return [self._sub_sampler(i).predict(
                 target=target, kind=kind, pf=pf, N=N, squared=squared,
@@ -1108,6 +1171,7 @@ class SeqSampler(Sampler):
         chosen sequences as the rows of one padded program (the tails
         frozen by the step validity gate and masked in the statistic by
         each row's length); ``kind="marginal"`` loops over them."""
+        kind = self._default_kind() if kind is None else kind
         n_seq = len(self.lengths)
         idx = np.arange(n_seq)
         if num_sequences != -1:
@@ -1132,6 +1196,25 @@ class SeqSampler(Sampler):
         return out * scale
 
 
+class GaussHMMSampler(GibbsSamplerMixin, SCIRSamplerMixin, Sampler):
+    """Gaussian HMM with ``num_states`` states and m-dimensional
+    observations: exact-message SGLD (the default kind), the complete kind,
+    SCIR and blocked Gibbs, in float64."""
+    def __init__(self, observations=None, num_states: int = 2, m: int = 1,
+                 **kw):
+        super().__init__(get_model("gauss_hmm", num_states=num_states, m=m),
+                         observations, **kw)
+
+
+class ARPHMMSampler(GibbsSamplerMixin, SCIRSamplerMixin, Sampler):
+    """AR(p) HMM over lag-stacked observations ``[T, p+1, m]``
+    (``models/arphmm.stack_y``)."""
+    def __init__(self, observations=None, num_states: int = 2, m: int = 1,
+                 p: int = 1, **kw):
+        super().__init__(get_model("arphmm", num_states=num_states, m=m,
+                                   p=p), observations, **kw)
+
+
 class SeqSVMSampler(SeqSampler):
     def __init__(self, observations, **kw):
         super().__init__("svm", observations, **kw)
@@ -1152,10 +1235,22 @@ class SeqLGSSMSampler(SeqSampler):
         super().__init__(get_model("lgssm", n=n, m=m), observations, **kw)
 
 
+class SeqGaussHMMSampler(SeqSampler):
+    def __init__(self, observations, num_states: int = 2, m: int = 1, **kw):
+        super().__init__(get_model("gauss_hmm", num_states=num_states, m=m),
+                         observations, **kw)
+
+
+class SeqARPHMMSampler(SeqSampler):
+    """Sequences of lag-stacked observations ``[T_i, p+1, m]``."""
+    def __init__(self, observations, num_states: int = 2, m: int = 1,
+                 p: int = 1, **kw):
+        super().__init__(get_model("arphmm", num_states=num_states, m=m,
+                                   p=p), observations, **kw)
+
+
 # the model names of the JAX package whose samplers are not ported yet
-_UNPORTED_SAMPLERS = {"gauss_hmm": "slice 12 (the HMM family)",
-                      "arphmm": "slice 12 (the HMM family)",
-                      "slds": "slice 13 (the SLDS)"}
+_UNPORTED_SAMPLERS = {"slds": "slice 13 (the SLDS)"}
 
 
 def check_ported(model_name: str) -> None:
@@ -1171,7 +1266,8 @@ def sampler_for_model(model_name: str, **kwargs) -> Sampler:
     """Model name -> sampler instance (the one dispatch point generic code
     uses); ``kwargs`` go to the sampler's constructor."""
     classes = {"svm": SVMSampler, "svjm": SVJMSampler,
-               "garch": GARCHSampler, "lgssm": LGSSMSampler}
+               "garch": GARCHSampler, "lgssm": LGSSMSampler,
+               "gauss_hmm": GaussHMMSampler, "arphmm": ARPHMMSampler}
     check_ported(model_name)
     if model_name not in classes:
         raise ValueError(f"Unknown model '{model_name}' (choose from "

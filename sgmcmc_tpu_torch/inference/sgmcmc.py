@@ -370,7 +370,9 @@ class ExactDraws(NamedTuple):
     start: torch.Tensor                   # [R] int64 subsequence starts
     # kind='complete': [R, K, W, n] FFBS normals (row W-1 draws the last
     # row, row t the step x_t | x_{t+1}) and [R, K, n] normals of the
-    # pre-window completion, K = num_samples
+    # pre-window completion, K = num_samples; for a model with discrete
+    # latents [R, K, W] FFBS uniforms (one a row, drawn forward) and [R,
+    # K] completion uniforms, float64
     ffbs: torch.Tensor | None = None
     completion: torch.Tensor | None = None
     seq: torch.Tensor | None = None       # [R] sequences (Seq score)
@@ -383,8 +385,8 @@ class MarginalScore(nn.Module):
     ``windowed_fn(rows, window [R, W, m], valid [R, W], weights [R, S], B,
     S)`` (the model's ``windowed_marginal_gradient``, or its
     ``windowed_complete_gradient``, which also takes ``num_samples``,
-    ``normals`` and ``completion``) returns ``(gradient parameters,
-    loglik [R])``.  Each minibatch row's window is the JAX package's
+    ``normals`` (``uniforms`` for a model with ``discrete`` latents) and
+    ``completion``) returns ``(gradient parameters, loglik [R])``.  Each minibatch row's window is the JAX package's
     rolled one: ``idx = start - B + arange(S + 2B)``, rows outside
     ``[0, T)`` masked by ``valid`` and clipped, so the subsequence always
     fills the central S rows (not the PF score's shifted window).
@@ -396,11 +398,11 @@ class MarginalScore(nn.Module):
 
     def __init__(self, windowed_fn, config: PFScoreConfig, T: int,
                  pass_draws: bool = False, num_samples: int = 1,
-                 state_dim: int = 1):
+                 state_dim: int = 1, discrete: bool = False):
         super().__init__()
         self.windowed_fn, self.config, self.T = windowed_fn, config, T
         self.pass_draws, self.num_samples = pass_draws, num_samples
-        self.state_dim = state_dim
+        self.state_dim, self.discrete = state_dim, discrete
         S = config.subsequence_length
         self.full = (S == -1) or (S >= T)
         self.B = 0 if self.full else (T if config.buffer_length == -1
@@ -427,6 +429,13 @@ class MarginalScore(nn.Module):
         if not self.pass_draws:
             return ExactDraws(start, seq=seq)
         R, K, n = start.shape[0], self.num_samples, self.state_dim
+        if self.discrete:
+            # one uniform per latent row and draw
+            ffbs, completion = [torch.rand(shape, generator=generator,
+                                           dtype=torch.float64,
+                                           device=device)
+                                for shape in ((R, K, self.W), (R, K))]
+            return ExactDraws(start, ffbs, completion, seq)
         # n normals per latent row and draw
         ffbs = torch.randn((R, K, self.W, n), generator=generator,
                            device=device)
@@ -463,9 +472,10 @@ class MarginalScore(nn.Module):
         window, valid, weights = self._layout(draws, observations)
         kw = {}
         if self.pass_draws:
-            kw = dict(num_samples=self.num_samples,
-                      normals=draws.ffbs.to(observations.dtype),
-                      completion=draws.completion.to(observations.dtype))
+            kw = {"num_samples": self.num_samples,
+                  "uniforms" if self.discrete else "normals":
+                  draws.ffbs.to(observations.dtype),
+                  "completion": draws.completion.to(observations.dtype)}
         grad, loglik = self.windowed_fn(rows, window, valid, weights, self.B,
                                         self.S, **kw)
         return self._combine(grad, loglik, draws, C)
@@ -562,13 +572,14 @@ def make_seq_pf_score_fn(kernel: ParticleKernel, stat_fn: StatisticFn,
 
 def make_marginal_score_fn(windowed_fn, config: PFScoreConfig, T: int,
                            pass_draws: bool = False, num_samples: int = 1,
-                           state_dim: int = 1) -> MarginalScore:
+                           state_dim: int = 1,
+                           discrete: bool = False) -> MarginalScore:
     """Build the buffered exact-message score (see :class:`MarginalScore`);
     ``pass_draws`` gives the windowed function its random draws (the
     complete kind's FFBS and completion normals, ``state_dim`` a latent
-    row)."""
+    row, or with ``discrete`` latents their uniforms)."""
     return MarginalScore(windowed_fn, config, T, pass_draws, num_samples,
-                         state_dim)
+                         state_dim, discrete)
 
 
 def make_seq_marginal_score_fn(windowed_fn, config: PFScoreConfig, lengths,

@@ -218,15 +218,28 @@ def z_metric_rows(true_z, probs) -> list[dict]:
 
 
 def metric_compare_z(true_z, num_states: int | None = None) -> Callable:
-    """Discrete-latent recovery metrics (:func:`z_metric_rows`) of the
-    sampler's model's posterior state probabilities.  The port has no
-    discrete-latent model yet: the HMM family is ROADMAP.md, Queue 1,
-    slice 12, so the returned function raises for every sampler."""
+    """Discrete-latent recovery rows (:func:`z_metric_rows`) of the
+    smoothed state probabilities of the sampler's one chain, through its
+    model's ``latent_var_distr`` (GaussHMM, ARPHMM); a model whose latents
+    are Gaussian (its ``latent_var_distr`` gives moments) raises
+    ``ValueError``, one without exact messages ``NotImplementedError``."""
+    true_z = np.asarray(true_z)
+
     def metric_fn(sampler):
-        name = getattr(getattr(sampler, "model", None), "name", None)
-        raise NotImplementedError(
-            f"metric_compare_z needs a discrete-latent model, and {name} is "
-            "not one: the HMM family is not ported yet (ROADMAP.md, Queue "
-            "1, slice 12)")
+        distr = getattr(sampler.model, "latent_var_distr", None)
+        if distr is None:
+            raise NotImplementedError(
+                "metric_compare_z needs a model with latent_var_distr")
+        params = sampler.parameters
+        if params.num_chains != 1:
+            raise ValueError(
+                f"metric_compare_z works on one chain's parameters, but the "
+                f"sampler holds {params.num_chains}; call select_chain(i)")
+        out = distr(params, sampler.observations)
+        if isinstance(out, tuple):
+            raise ValueError(
+                "metric_compare_z requires a discrete-latent model "
+                "(latent_var_distr returned Gaussian moments)")
+        return z_metric_rows(true_z, out[0].detach().cpu().numpy())
 
     return metric_fn

@@ -26,7 +26,7 @@ the Gibbs sweep's (:class:`GibbsDraws`), the prior draw's
 (:class:`PriorDraws`), data generation's and the preconditioner's noise.
 The associative-scan functions of the JAX module
 (``parallel_marginal_loglikelihood`` and its two companions) need
-``ops/kalman_parallel.py``, which is ROADMAP.md, Queue 1, slice 12.
+``ops/kalman_parallel.py``, which is ROADMAP.md, Queue 1, slice 12b.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Uniform model adapter (counterpart of ``sgmcmc_tpu/models/registry.py``,
 with the fields the particle and exact-message scores, the steppers,
-Gibbs and the predict surface read, and the SVM, LGSSM (any n, m), GARCH
-and SVJM entries)."""
+Gibbs and the predict surface read, and the SVM, LGSSM (any n, m), GARCH,
+SVJM, GaussHMM and ARPHMM entries; the SLDS is ROADMAP.md, Queue 1, slice
+13)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +11,9 @@ from typing import Callable
 
 import torch
 
+from . import arphmm as arphmm_mod
 from . import garch as garch_mod
+from . import gauss_hmm as gauss_hmm_mod
 from . import lgssm as lgssm_mod
 from . import svjm as svjm_mod
 from . import svm as svm_mod
@@ -64,6 +67,12 @@ class ModelAPI:
     y_moments: Callable | None = None
     make_predictive_stat_fn: Callable | None = None
     predictive_loglikelihood: Callable | None = None
+    # whether the model has a particle filter (False: the discrete-state
+    # models, whose default score kind is then the exact messages' and
+    # whose complete kind's FFBS draws uniforms, not normals), and the
+    # dtype its samplers hold their observations and parameters in
+    has_pf: bool = True
+    dtype: torch.dtype = torch.float32
 
 
 def _api(name: str, mod, prior_mean_var, **extra) -> ModelAPI:
@@ -140,12 +149,65 @@ SVJM = _api("svjm", svjm_mod, _stationary_prior(svjm_mod))
 _MODELS = {"svm": SVM, "garch": GARCH, "svjm": SVJM}
 
 
+def _no_particle_filter(*_, **__):
+    raise NotImplementedError("discrete-state models have no particle "
+                              "filter")
+
+
+# the exact-message, preconditioner, Gibbs and predict fields of the HMM
+# family, under its modules' own names
+_HMM_FIELDS = ("logprior", "grad_logprior", "sample_prior",
+               "project_parameters", "generate_data",
+               "marginal_loglikelihood", "gradient_marginal_loglikelihood",
+               "windowed_marginal_gradient", "windowed_complete_gradient",
+               "latent_var_sample", "latent_var_distr", "gibbs_step",
+               "predictive_loglikelihood", "precondition",
+               "precondition_noise", "correction_term",
+               "precondition_normals")
+
+
+def _hmm_api(name: str, mod, default_prior) -> ModelAPI:
+    """A discrete-state model: exact messages, no particle filter, float64
+    (the JAX package's registry entries, ``has_pf=False``)."""
+    return ModelAPI(
+        name=name, get_kernel=_no_particle_filter, grad_statistic=None,
+        grad_statistic_dim=0, unpack_grad=None, default_prior=default_prior,
+        prior_mean_var=lambda p: (0.0, 1.0), has_pf=False,
+        dtype=gauss_hmm_mod.DTYPE,
+        **{f: getattr(mod, f) for f in _HMM_FIELDS})
+
+
+@functools.lru_cache(maxsize=None)
+def _gauss_hmm_api(num_states: int = 2, m: int = 1) -> ModelAPI:
+    return _hmm_api(f"gauss_hmm_{num_states}_{m}", gauss_hmm_mod,
+                    functools.partial(gauss_hmm_mod.default_prior,
+                                      num_states, m))
+
+
+@functools.lru_cache(maxsize=None)
+def _arphmm_api(num_states: int = 2, m: int = 1, p: int = 1) -> ModelAPI:
+    return _hmm_api(f"arphmm_{num_states}_{m}_{p}", arphmm_mod,
+                    functools.partial(arphmm_mod.default_prior, num_states,
+                                      m, m * p))
+
+
 def get_model(name: str, **kwargs) -> ModelAPI:
     """The model adapter ``name``; the LGSSM takes ``n`` and ``m`` (the
-    scalar entry ``LGSSM`` without them, or at n = m = 1)."""
+    scalar entry ``LGSSM`` without them, or at n = m = 1), the GaussHMM
+    ``num_states`` and ``m``, the ARPHMM also ``p``."""
     if name in _MODELS and not kwargs:
         return _MODELS[name]
     if name == "lgssm" and set(kwargs) <= {"n", "m"}:
         return _lgssm_api(int(kwargs.get("n", 1)), int(kwargs.get("m", 1)))
+    if name == "gauss_hmm" and set(kwargs) <= {"num_states", "m"}:
+        return _gauss_hmm_api(int(kwargs.get("num_states", 2)),
+                              int(kwargs.get("m", 1)))
+    if name == "arphmm" and set(kwargs) <= {"num_states", "m", "p"}:
+        return _arphmm_api(int(kwargs.get("num_states", 2)),
+                           int(kwargs.get("m", 1)), int(kwargs.get("p", 1)))
+    if name == "slds":
+        raise NotImplementedError("model 'slds' is not ported yet "
+                                  "(ROADMAP.md, Queue 1, slice 13: the "
+                                  "SLDS)")
     raise NotImplementedError(f"model '{name}' with {kwargs} is not ported "
                               "yet")

@@ -38,19 +38,20 @@ def sample_wishart(generator: torch.Generator, df, scale: torch.Tensor,
                    batch_shape: tuple = (), chi2: torch.Tensor | None = None,
                    off: torch.Tensor | None = None) -> torch.Tensor:
     """Wishart(df, scale) samples [*batch, n, n], the batch being
-    ``batch_shape`` broadcast with the leading axes of ``scale``, via the
-    Bartlett decomposition W = L A A^T L^T, L = chol(scale), A
-    lower-triangular with diag(A)_i^2 ~ chi2(df - i) and N(0, 1) below the
-    diagonal.  ``chi2 [*batch, n]`` (the squared diagonal) and ``off
+    ``batch_shape`` broadcast with the leading axes of ``scale`` (and of
+    ``df``, a scalar or one per batch entry), via the Bartlett
+    decomposition W = L A A^T L^T, L = chol(scale), A lower-triangular
+    with diag(A)_i^2 ~ chi2(df - i) and N(0, 1) below the diagonal.  ``chi2 [*batch, n]`` (the squared diagonal) and ``off
     [*batch, n(n-1)/2]`` (the normals below it, in ``np.tril_indices(n,
     -1)`` order) replace the generator's draws."""
     n = scale.shape[-1]
     dt, dev = scale.dtype, scale.device
-    batch = torch.broadcast_shapes(tuple(batch_shape), scale.shape[:-2])
+    df = torch.as_tensor(df, dtype=dt, device=dev)
+    batch = torch.broadcast_shapes(tuple(batch_shape), scale.shape[:-2],
+                                   df.shape)
     if chi2 is None:
         i = torch.arange(n, dtype=dt, device=dev)
-        alpha = ((torch.as_tensor(df, dtype=dt, device=dev) - i) / 2.0
-                 ).expand(batch + (n,)).contiguous()
+        alpha = ((df[..., None] - i) / 2.0).expand(batch + (n,)).contiguous()
         chi2 = 2.0 * torch._standard_gamma(alpha, generator=generator)
     if off is None:
         A = torch.randn(batch + (n, n), generator=generator, dtype=dt,

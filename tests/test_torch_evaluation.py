@@ -25,12 +25,14 @@ from sgmcmc_tpu.metrics import convergence as jconv
 from sgmcmc_tpu.metrics import ks_test as jks
 from sgmcmc_tpu.metrics import ksd as jksd
 from sgmcmc_tpu.metrics import metric_functions as jmf
+from sgmcmc_tpu.models import gauss_hmm as jghmm
 from sgmcmc_tpu.models import lgssm as jl
 from sgmcmc_tpu_torch.evaluation import evaluator as ev
 from sgmcmc_tpu_torch.inference import samplers
 from sgmcmc_tpu_torch.io import checkpoint
 from sgmcmc_tpu_torch.metrics import convergence, ks_test, ksd
 from sgmcmc_tpu_torch.metrics import metric_functions as mf
+from sgmcmc_tpu_torch.models import gauss_hmm as ghmm
 from sgmcmc_tpu_torch.models import lgssm
 from sgmcmc_tpu_torch.utils import profiling
 
@@ -239,8 +241,8 @@ def test_sampler_evaluator_and_fit_evaluate_on_cpu():
 def test_metric_compare_and_predictive_metrics():
     """metric_compare_x (the LGSSM's exact smoothed means, float64)
     against the JAX package's; the predictive metric's rows; z metrics on
-    the JAX package's permutation logic, and metric_compare_z pointing at
-    the HMM family's slice."""
+    the JAX package's permutation logic, and metric_compare_z on a
+    GaussHMM sampler against the JAX package's."""
     ys = series()
     jp = jl.from_matrices(A=[[0.8]], C=[[1.0]], Q=[[0.5]], R=[[1.3]])
     true_x = np.random.default_rng(4).standard_normal((30, 1))
@@ -272,7 +274,21 @@ def test_metric_compare_and_predictive_metrics():
     assert [r["metric"] for r in got_z] == [r["metric"] for r in want_z]
     for g, w in zip(got_z, want_z):
         np.testing.assert_allclose(g["value"], w["value"], rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="slice 12"):
+    # metric_compare_z on an HMM sampler against the JAX package's, on the
+    # same parameters and observations; a Gaussian-latent model raises
+    jtruth = jghmm.from_values([[0.8, 0.2], [0.3, 0.7]], [[-1.0], [1.0]],
+                               np.stack([np.eye(1) * 0.5] * 2))
+    ys_z, z_true = jghmm.generate_data(jax.random.PRNGKey(7), jtruth, 40)
+    want_z = jmf.metric_compare_z(np.asarray(z_true))(
+        jsamplers.GaussHMMSampler(observations=ys_z, parameters=jtruth))
+    hmm_s = samplers.GaussHMMSampler(np.array(ys_z), device="cpu",
+                                     parameters=ghmm.params_from_jax(jtruth))
+    got_z = mf.metric_compare_z(np.asarray(z_true))(hmm_s)
+    assert [r["metric"] for r in got_z] == [r["metric"] for r in want_z]
+    for g, w in zip(got_z, want_z):
+        np.testing.assert_allclose(g["value"], w["value"], rtol=1e-12)
+    assert got_z[-1]["value"] > 0.7
+    with pytest.raises(ValueError, match="discrete-latent"):
         mf.metric_compare_z(true_z)(s)
 
 

@@ -43,12 +43,13 @@ from sgmcmc_tpu_torch.inference import samplers
 from sgmcmc_tpu_torch.io import checkpoint as ckpt
 from sgmcmc_tpu_torch.io import tables
 from sgmcmc_tpu_torch.metrics import convergence
-from sgmcmc_tpu_torch.models import garch, lgssm, svjm, svm
+from sgmcmc_tpu_torch.models import (arphmm, garch, gauss_hmm, lgssm, svjm,
+                                     svm)
 
 torch.set_num_threads(1)
 
-MODELS = ("svm", "svjm", "garch", "lgssm")
-UNPORTED = ("gauss_hmm", "arphmm", "slds")
+MODELS = ("svm", "svjm", "garch", "lgssm", "gauss_hmm", "arphmm")
+UNPORTED = ("slds",)
 # a small grid over the default one's names: 3 iterations of one step
 SMALL = dict(max_num_iters=3, steps_per_iteration=1, N=32,
              subsequence_length=10, buffer_length=2)
@@ -134,9 +135,11 @@ def jax_params(model, rng):
     elif model == "garch":
         p = jgarch.from_alpha_beta_gamma(0.1, 0.4, 0.3, 0.5,
                                          dtype=jnp.float64)
-    else:
+    elif model == "lgssm":
         p = jl.from_matrices(A=[[0.8]], C=[[1.0]], Q=[[0.6]], R=[[1.3]],
                              dtype=jnp.float64)
+    else:
+        p = jd._make_true_params(model, dtype=jnp.float64)
     fields = [f.name for f in dataclasses.fields(p)]
     perturbed = p.replace(**{f: np.asarray(getattr(p, f), np.float64)
                              * np.exp(0.1 * rng.standard_normal())
@@ -147,7 +150,9 @@ def jax_params(model, rng):
 
 
 PORT_CLASSES = dict(svm=svm.SVMParams, svjm=svjm.SVJMParams,
-                    garch=garch.GARCHParams, lgssm=lgssm.LGSSMParams)
+                    garch=garch.GARCHParams, lgssm=lgssm.LGSSMParams,
+                    gauss_hmm=gauss_hmm.GaussHMMParams,
+                    arphmm=arphmm.ARPHMMParams)
 
 
 def to_port(model, p):
@@ -487,16 +492,19 @@ def test_ksd_block_scores_agree_in_law_with_the_loop():
     assert block.shape == loop.shape == (64, 3) and z.max() < 5, z
 
 
+@pytest.mark.parametrize("iter_type", ["SGLD", "ADAGRAD"])
 @pytest.mark.parametrize("num_chains", [1, 3])
-def test_fit_resumes_to_the_uninterrupted_fit(tmp_path, num_chains):
+def test_fit_resumes_to_the_uninterrupted_fit(tmp_path, num_chains,
+                                              iter_type):
     """A fit stopped at its checkpoint and resumed equals one
-    uninterrupted fit bitwise (the state carries the generator's)."""
+    uninterrupted fit bitwise (the state carries the generator's and
+    ADAGRAD's accumulator)."""
     traces = {}
     for label, stops in (("once", [4]), ("resumed", [2, 4])):
         args = args_for(tmp_path / label)
         args.num_chains = num_chains
         opts = driver.do_setup(args, small_grid("svm", ["POYIADJIS_N_1000"]))
-        o = dict(opts[2], checkpoint_num_iters=2)
+        o = dict(opts[2], checkpoint_num_iters=2, iter_type=iter_type)
         for stop in stops:
             driver.do_fit(args, dict(o, max_num_iters=stop))
         tr = ckpt.load_trace(str(tmp_path / label / "out" / "fit"
@@ -521,12 +529,15 @@ def test_lgssm_pipeline_and_kstest(tmp_path):
 
 @pytest.mark.parametrize("model", UNPORTED)
 def test_unported_models_raise_at_setup(tmp_path, model):
-    with pytest.raises(NotImplementedError, match="slice 1[23]"):
+    with pytest.raises(NotImplementedError, match="slice 13"):
         driver.main(["--setup", "--model", model, "--path",
                      str(tmp_path), "--device", "cpu"])
     assert not os.path.exists(tmp_path / "in")
-    with pytest.raises(NotImplementedError):
-        driver._iter_funcs("SCIR", {}, {})
+    # the SCIR step the HMM grid runs: the projection inside the step
+    assert driver._iter_funcs("SCIR", dict(epsilon=0.2), dict(
+        subsequence_length=16)) == jd._iter_funcs(
+            "SCIR", dict(epsilon=0.2), dict(subsequence_length=16)) == (
+        ["sample_sgld_scir"], [dict(epsilon=0.2, subsequence_length=16)])
 
 
 @pytest.mark.parametrize("flag", [["--num_particle_devices", "2"],

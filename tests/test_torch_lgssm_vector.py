@@ -403,7 +403,8 @@ def test_params_from_jax_round_trips():
 def test_registry_and_samplers_take_the_vector_model():
     """get_model("lgssm", n, m) is the vector ModelAPI (K1 stays the
     scalar model's), the scalar entry is unchanged, and the LGSSM samplers
-    and sampler_for_model build either."""
+    and sampler_for_model build either; sampler_for_model builds the
+    GaussHMM's (float64) and names the SLDS's slice."""
     vec = registry.get_model("lgssm", n=2, m=2)
     assert isinstance(vec, sgmcmc_tpu_torch.ModelAPI)
     assert vec.get_fused is None and vec.name == "lgssm_2_2"
@@ -419,9 +420,14 @@ def test_registry_and_samplers_take_the_vector_model():
                                            m=2, device="cpu")
     assert isinstance(s, samplers.LGSSMSampler) and s.model is vec
     assert s.parameters.A.shape == (1, 2, 2)
-    for name, slice_ in (("gauss_hmm", "slice 12"), ("slds", "slice 13")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            samplers.sampler_for_model(name)
+    hmm = sgmcmc_tpu_torch.sampler_for_model(
+        "gauss_hmm", observations=ys[:, :1], num_states=3, device="cpu")
+    assert isinstance(hmm, samplers.GaussHMMSampler)
+    assert hmm.model is registry.get_model("gauss_hmm", num_states=3)
+    assert hmm.parameters.mu.shape == (1, 3, 1)
+    assert hmm.parameters.mu.dtype == hmm.observations.dtype == torch.float64
+    with pytest.raises(NotImplementedError, match="slice 13"):
+        samplers.sampler_for_model("slds")
     with pytest.raises(ValueError, match="Unknown model"):
         samplers.sampler_for_model("nope")
 

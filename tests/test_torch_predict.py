@@ -572,9 +572,9 @@ def test_seq_predictive_loglikelihood_matches_jax():
 
 
 def test_predict_contract():
-    """The JAX package's errors, one chain only (select_chain), the HMM
-    branch pointing at its slice, the vector LGSSM's predict statistics,
-    and the aliases."""
+    """The JAX package's errors, one chain only (select_chain), the exact
+    predict of a model without exact messages, the vector LGSSM's predict
+    statistics, and the aliases."""
     ys, _ = svm.generate_data(torch.Generator().manual_seed(1),
                               svm.from_scalars(0.9, 0.5, 1.0), 12)
     smp = samplers.SVMSampler(ys, device="cpu")
@@ -588,7 +588,7 @@ def test_predict_contract():
         smp.predict(N=8, squared=True)
     with pytest.raises(NotImplementedError, match="PF path"):
         smp.predict(N=8, num_samples=2)
-    with pytest.raises(NotImplementedError, match="slice 12"):
+    with pytest.raises(NotImplementedError, match="no exact messages"):
         smp.predict(kind="marginal")
     with pytest.raises(NotImplementedError, match="exact predictive"):
         smp.predictive_loglikelihood(kind="marginal")
