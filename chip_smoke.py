@@ -201,7 +201,7 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      8192`` fit with exactly 20 x 60 resample-apply launches and no K1,
      eval, KSD in blocks and as a loop, process_out with pandas and
      matplotlib not loaded) and on the LGSSM (Gibbs, the Kalman score, KS
-     tests); ``--model slds --setup`` raising; a driver fit stopped at
+     tests); a driver fit stopped at
      its checkpoint and resumed bitwise equal to the uninterrupted one
      (SGLD and ADAGRAD, whose accumulator the resume state carries, at 1
      and 3 chains); the gradient-error
@@ -228,6 +228,23 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      ``SEQ_LENGTHS``; ``predict`` at T=1000 with ``metric_compare_z``;
      the driver's HMM grid for the GaussHMM (setup at T=1000, GIBBS, SGLD
      at B=0 and 4 and SCIR for 2 iterations, eval, KSD, KS).
+ 27. the parallel-in-time messages and the switching LDS (float64, plain
+     PyTorch, no kernel: every call checks 0 launches): the associative
+     scans (``parallel_*`` of the LGSSM at n = m = 1 and 2 and of the
+     GaussHMM: log-likelihood, filtered and smoothed moments, the autograd
+     score, the forward messages; 64 chains, T=1000) on the card against
+     the CPU (normwise relative difference at most 1e-9) and against the
+     sequential functions on the card (at most 1e-8); their wall time and
+     device operations beside the sequential log-likelihood's at C=1 and
+     1024; the SLDS's x | z messages, x FFBS, Gibbs sweep and windowed
+     complete score on the card against the CPU on shared draws (at most
+     1e-9, the sweep's z paths equal); a Gibbs sweep of 1024 chains and
+     complete-data SGLD at 8192 chains (S=16, B=4, the driver grid's
+     latent sweeps) at T=1000; the distributional anchor of
+     tests/test_slds.py chain-batched (Gibbs against full-series complete
+     SGLD from the truth at T=200: A_k and LQinv_k shifts below 0.5 sd,
+     sd ratios in 0.5-1.6); the driver's SLDS grid (setup at T=1000,
+     GIBBS and SGLD_COMPLETE, eval, --num_chains 2 raising).
 The last three lines are the kernel report (JSON), the card's
 ``nvidia-smi`` name and power limit, and the result (JSON).
 Exits non-zero without a result when no CUDA device is available.
@@ -1337,7 +1354,10 @@ EXPERIMENT_SHAPES = dict(grad_truth=(4, 100000, 4), driver=(1, 1000, 4))
 # predictive steps, points), KSD (N, samples), loop-timed scores, LGSSM
 # iterations); figs: gradient_error_figs.run's defaults; demo: segment
 # lengths, N, SGLD / LD iterations, save_params / calculate_ksd settings;
-# gate: the SGLD-against-LD KSD ordering of tests/test_ksd_sgld_vs_ld.py;
+# gate: the SGLD-against-LD KSD ordering of tests/test_ksd_sgld_vs_ld.py
+# (its LD leg cut from 600 to 300 iterations, ~0.22 s each on the card,
+# for phase 27's time: LD's phi KSD was 0.018 of SGLD's at 600, held below
+# 0.5);
 # resume: iterations before and after the checkpoint, particles
 # The host-bound single-chain loops are cut to keep the phase's time (a
 # default-grid fit iteration takes 0.4-1.3 s, an eval point ~3.7 s, a
@@ -1350,14 +1370,14 @@ EXPERIMENT_SIZES = dict(
               reps=20),
     demo=dict(lengths=SEQ_LENGTHS, N=1000, sgld=2000, ld=3, fit_time=5.0,
               save_N=10000, save_chunk=50, ksd_samples=2, ksd_N=10000),
-    gate=dict(T=125, sgld=3000, ld=600, N=128, ksd_N=256, samples=60),
+    gate=dict(T=125, sgld=3000, ld=300, N=128, ksd_N=256, samples=60),
     resume=dict(iters=2, N=256), shapes=EXPERIMENT_SHAPES)
 
 
 def experiments_phase(dev, card, sizes=EXPERIMENT_SIZES):
     """Phase 25 on ``dev`` (the CPU for a rehearsal at small ``sizes``):
     the experiment driver (SVM and LGSSM: setup, every fit, a multichain
-    fit, eval, KSD, KS, process_out; an unported model at setup), the
+    fit, eval, KSD, KS, process_out), the
     gradient-error figure and the exchange-rate demo on synthetic
     segments, with resample-apply and K1 held bitwise at their new shapes,
     then the demo's SGLD-against-LD KSD ordering.  Returns the report's
@@ -1558,17 +1578,7 @@ def experiments_phase(dev, card, sizes=EXPERIMENT_SIZES):
     if not ks_rows or not all(0 <= r["value"] <= 1 for r in ks_rows):
         raise AssertionError("kstest rows")
 
-    # (d) a model not ported yet raises at --setup
-    try:
-        driver.main(["--setup", "--model", "slds", "--path",
-                     os.path.join(tmp, "slds"), "--device", dev.type])
-    except NotImplementedError as e:
-        phase("25 driver unported", f"--model slds --setup raises "
-              f"NotImplementedError: {e}")
-    else:
-        raise AssertionError("--model slds --setup did not raise")
-
-    # (d') resume: the resumed fits equal the uninterrupted ones
+    # (d) resume: the resumed fits equal the uninterrupted ones
     driver_resume_check(dev, tmp, T_len, sizes["resume"])
 
     # (e) the gradient-error figure at run's defaults
@@ -2100,6 +2110,409 @@ def hmm_phase(dev, card, sizes=HMM_SIZES):
         raise AssertionError(f"HMM KSD {ksd}")
     phase("26 seconds", f"{time.perf_counter() - t_phase:.1f} s")
     return rates
+
+
+# Phase 27: the parallel-in-time messages and the switching LDS (float64,
+# plain PyTorch: no kernel of this script lies on their paths, and every
+# timed call checks 0 launches).  parallel: chains of the card-vs-CPU
+# check, T and the timed chain counts; slds: the card-vs-CPU chains, the
+# Gibbs sweep's and the complete-data SGLD's chains and repetitions, the
+# distributional anchor's sizes and the driver's iterations and eval
+# points.  The anchor is tests/test_slds.py:165-216 chain-batched: its
+# T=200 series (truth pi 0.95 / 0.05, A = 0.9, -0.9, Q = 0.3, R = 0.1,
+# drawn on the CPU from seed 3), Gibbs and full-series complete SGLD (one
+# latent draw after 8 sweeps) from the truth.  The JAX test runs one chain
+# 6000 steps at epsilon 5e-3; here 1024 chains run 100 steps at epsilon
+# 0.1 and the last 20 of every chain are pooled: a step costs ~44,000
+# device operations (the host sets its time), and the slowest coordinate,
+# LQinv_k, relaxes ~20x faster a step at 0.1 (CPU rehearsals at 64-128
+# chains on the same series: shifts 0.03-0.37 sd after 90-150 steps).
+PARALLEL_SIZES = dict(T=T, oracle=64, timing=(1, 1024), reps=3)
+SLDS_SIZES = dict(T=T, oracle=64, gibbs=(1024, 3), sgld=(C_BENCH, 3),
+                  anchor=dict(T=200, chains=1024, sweeps=50, sweep_burn=20,
+                              steps=100, keep=20, eps=0.1, latent_burnin=8),
+                  driver_iters=2, driver_eval=2)
+ANCHOR_SHIFT, ANCHOR_RATIO = 0.5, (0.5, 1.6)
+
+
+def device_ops(fn):
+    """(fn(), the device operations it ran: kernels, copies and fills in
+    a torch.profiler trace; None where the trace holds no device
+    activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return res, (n or None)
+
+
+def parallel_slds_phase(dev, card, psizes=PARALLEL_SIZES, sizes=SLDS_SIZES):
+    """Phase 27 on ``dev`` (the CPU for a rehearsal at small sizes): the
+    parallel-in-time messages (card against CPU, against the sequential
+    functions on the card, their wall time and device operations beside
+    the sequential ones, the autograd score against the analytic one) and
+    the SLDS (card against CPU on shared draws, a Gibbs sweep at 1024
+    chains, complete-data SGLD at 8192, the Gibbs-against-SGLD anchor, the
+    driver's SLDS grid)."""
+    import dataclasses
+    import os
+    import tempfile
+    import numpy as np
+    from sgmcmc_tpu_torch.experiments import driver
+    from sgmcmc_tpu_torch.inference import samplers
+    from sgmcmc_tpu_torch.models import gauss_hmm, lgssm, slds
+    from sgmcmc_tpu_torch.models.base import params_map
+    from sgmcmc_tpu_torch.ops import hmm, kalman
+    from sgmcmc_tpu_torch.ops.cuda import fused_pf, resample
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(27)
+    cpu = torch.device("cpu")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        """(result, seconds) of fn(), which launches neither kernel."""
+        sync()
+        reset_counts(fused_pf, resample)
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        got = (fused_pf.fused_window.launches,
+               resample.resample_apply.launches)
+        if got != (0, 0):
+            raise AssertionError(f"a phase 27 path launched {got}")
+        return res, time.perf_counter() - t0
+
+    def rel(a, b):
+        """Normwise relative difference of tensors (or tuples of them)."""
+        if isinstance(a, (tuple, list)):
+            return max(rel(x, y) for x, y in zip(a, b))
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        return float((a - b).norm() / b.norm().clamp(min=1e-300))
+
+    def fields(p):
+        return [getattr(p, f) for f in ("A", "C", "LQinv_vec", "LRinv_vec")]
+
+    # (a) the parallel-in-time functions on the card against the CPU on the
+    # same float64 inputs: the LGSSM at n = m = 1 and 2, the GaussHMM
+    T_len, n_or = psizes["T"], psizes["oracle"]
+
+    def lgssm_chains(n, count):
+        """``count`` chains of the n = m LGSSM: random rotations A and
+        emissions C, tests/test_kalman_parallel.py's Q and R."""
+        p = lgssm.from_matrices(np.eye(n), np.eye(n), np.eye(n) * 0.5
+                                + 0.1 * np.ones((n, n)), np.eye(n) * 0.8,
+                                dtype=torch.float64)
+        return lgssm.LGSSMParams(
+            A=torch.as_tensor(np.stack([
+                0.8 * np.linalg.qr(rng.normal(size=(n, n)))[0]
+                for _ in range(count)])),
+            C=torch.as_tensor(rng.normal(size=(count, n, n)) / np.sqrt(n)),
+            LQinv_vec=p.LQinv_vec.repeat(count, 1),
+            LRinv_vec=p.LRinv_vec.repeat(count, 1))
+
+    def series(n):
+        """T observations y_t = x_t + noise of an AR(1) state."""
+        x, ys = np.zeros(n), []
+        for _ in range(T_len):
+            x = 0.8 * x + rng.normal(size=n) * 0.7
+            ys.append(x + rng.normal(size=n) * 0.9)
+        return torch.as_tensor(np.array(ys))
+
+    def lgssm_parallel(p, y):
+        fm = lgssm.parallel_latent_var_distr(p, y, smoothed=False)
+        return (lgssm.parallel_marginal_loglikelihood(p, y), *fm,
+                *lgssm.parallel_latent_var_distr(p, y),
+                *fields(lgssm.parallel_gradient_marginal_loglikelihood(p, y)))
+
+    def lgssm_sequential(p, y):
+        fwd = lgssm.default_forward_message(p)
+        fm = kalman.filtered_moments(y, p.A, p.C, p.LQinv, p.LRinv, fwd)
+        return (lgssm.marginal_loglikelihood(p, y), *fm,
+                *lgssm.latent_var_distr(p, y),
+                *fields(lgssm.gradient_marginal_loglikelihood(p, y)))
+
+    pis = rng.dirichlet(np.ones(2) * 3, size=(n_or, 2))
+    hp = gauss_hmm.GaussHMMParams(
+        logit_pi=torch.as_tensor(np.log(pis)),
+        mu=torch.as_tensor(rng.normal(size=(n_or, 2, 1))),
+        LRinv_vec=torch.as_tensor(1.0 + rng.random((n_or, 2, 1))))
+    hy = torch.as_tensor(rng.normal(size=(T_len, 1)) * 1.5)
+
+    def hmm_parallel(p, y):
+        logP = gauss_hmm.emission_logliks(p, y)
+        f0 = gauss_hmm.default_forward_message(p)
+        msg = hmm.parallel_forward_messages(logP, p.pi, f0)
+        return (gauss_hmm.parallel_marginal_loglikelihood(p, y), msg.prob,
+                msg.log_constant)
+
+    def hmm_sequential(p, y):
+        logP = gauss_hmm.emission_logliks(p, y)
+        f0 = gauss_hmm.default_forward_message(p)
+        msg = hmm.forward_messages(logP, p.pi, f0)
+        return (gauss_hmm.marginal_loglikelihood(p, y), msg.prob,
+                msg.log_constant)
+
+    cases = [("lgssm n=m=1", lgssm_chains(1, n_or), series(1),
+              lgssm_parallel, lgssm_sequential),
+             ("lgssm n=m=2", lgssm_chains(2, n_or), series(2),
+              lgssm_parallel, lgssm_sequential),
+             ("gauss_hmm K=2", hp, hy, hmm_parallel, hmm_sequential)]
+    worst_cpu, worst_seq = 0.0, 0.0
+    for label, p, y, par, seq in cases:
+        (out_card, secs) = timed(lambda: par(p.to(dev), y.to(dev)))
+        d_cpu = rel(out_card, par(p, y))
+        seq_card, _ = timed(lambda: seq(p.to(dev), y.to(dev)))
+        d_seq = rel(out_card, seq_card)
+        worst_cpu, worst_seq = max(worst_cpu, d_cpu), max(worst_seq, d_seq)
+        phase("27 parallel", f"{label}, {n_or} chains, T={T_len}, float64 "
+              f"(log-likelihood, filtered and smoothed moments, score; HMM: "
+              f"the forward messages): card against CPU {d_cpu:.3e} (bound "
+              f"1e-9), parallel against sequential on {dev.type} "
+              f"{d_seq:.3e} (bound 1e-8); {secs:.3f} s")
+    if not (worst_cpu <= 1e-9 and worst_seq <= 1e-8):
+        raise AssertionError(f"parallel-in-time: card vs CPU {worst_cpu}, "
+                             f"parallel vs sequential {worst_seq}")
+
+    phase("27 seconds", f"(a) {time.perf_counter() - t_phase:.1f} s")
+
+    # (b) parallel against sequential log-likelihood: wall time and device
+    # operations at T=1000, one chain and 1024
+    timing = {}
+    for C_t in psizes["timing"]:
+        for label, p, y, par_ll, seq_ll in (
+                ("lgssm n=m=1", cases[0][1], cases[0][2],
+                 lgssm.parallel_marginal_loglikelihood,
+                 lgssm.marginal_loglikelihood),
+                ("gauss_hmm K=2", hp, hy,
+                 gauss_hmm.parallel_marginal_loglikelihood,
+                 gauss_hmm.marginal_loglikelihood)):
+            rows = params_map(lambda v: v[:1].expand(
+                (C_t,) + v.shape[1:]).to(dev), p)
+            yd = y.to(dev)
+            row = {}
+            for kind, fn in (("parallel", par_ll), ("sequential", seq_ll)):
+                fn(rows, yd)
+                secs = sorted(timed(lambda: fn(rows, yd))[1]
+                              for _ in range(psizes["reps"]))
+                ops = device_ops(lambda: fn(rows, yd))[1] if cuda else None
+                row[kind] = (secs[len(secs) // 2], ops)
+            timing[(label, C_t)] = row
+            (tp, op), (ts, os_) = row["parallel"], row["sequential"]
+            phase("27 parallel timing", f"{label}, C={C_t}, T={T_len}: "
+                  f"parallel_marginal_loglikelihood {tp * 1e3:.2f} ms, "
+                  f"{op} device operations; sequential {ts * 1e3:.2f} ms, "
+                  f"{os_} device operations: {ts / tp:.1f}x the wall time"
+                  + (f", {os_ / op:.1f}x the operations" if op else "")
+                  + f" (median of {psizes['reps']}; {card})")
+
+    phase("27 seconds", f"(b) {time.perf_counter() - t_phase:.1f} s")
+
+    # (c) the SLDS on the card against the CPU on shared draws: x | z
+    # messages, the x FFBS, a Gibbs sweep and the windowed complete score
+    T_s, n_s = sizes["T"], sizes["oracle"]
+    truth = driver._make_true_params("slds")
+    gen = torch.Generator().manual_seed(27)
+    ys, _, _ = slds.generate_data(gen, truth, T_s)
+    sp = params_map(lambda v: v.expand((n_s,) + v.shape[1:]).contiguous(),
+                    truth)
+    sp = dataclasses.replace(sp, A=sp.A * torch.as_tensor(
+        rng.uniform(0.7, 1.1, (n_s, 2, 1, 1))).clamp(max=0.999))
+    z0 = torch.as_tensor(rng.integers(0, 2, (n_s, T_s)))
+    x0 = torch.as_tensor(rng.normal(size=(n_s, T_s, 1)))
+    draws = slds.SLDSDraws(
+        gamma=torch._standard_gamma(torch.full((n_s, 2, 2), 3.0,
+                                               dtype=torch.float64)),
+        q_chi2=2.0 * torch._standard_gamma(torch.full((n_s, 2, 1), 300.0,
+                                                      dtype=torch.float64)),
+        q_off=torch.zeros((n_s, 2, 0), dtype=torch.float64),
+        a_normals=torch.randn((n_s, 2, 1, 1), dtype=torch.float64),
+        r_chi2=2.0 * torch._standard_gamma(torch.full((n_s, 1), 500.0,
+                                                      dtype=torch.float64)),
+        r_off=torch.zeros((n_s, 0), dtype=torch.float64),
+        c_normals=torch.randn((n_s, 1, 1), dtype=torch.float64),
+        x_normals=torch.randn((n_s, T_s, 1), dtype=torch.float64),
+        z_uniforms=torch.rand((n_s, T_s), dtype=torch.float64))
+    wts = torch.as_tensor(rng.uniform(0.0, 2.0, (n_s, T_s)))
+
+    def slds_oracle(d, p, y, x, z, dr, w):
+        on = lambda v: None if v is None else v.to(d)  # noqa: E731
+        p, y, x, z, w = p.to(d), y.to(d), x.to(d), z.to(d), w.to(d)
+        dr = slds.SLDSDraws(*map(on, dr))
+        fwd = slds.x_forward_messages(p, y, z)
+        xs = slds.x_latent_var_sample(p, None, y, z, dr.x_normals)
+        new, x1, z1 = slds.gibbs_step(
+            None, slds.default_prior(2, 1, 1, device=d), p, y, x, z, dr)
+        grad, ll = slds.windowed_complete_gradient(p, y, x1, z1, w)
+        return (*fwd, xs, *[getattr(new, f) for f in vars(new)], x1,
+                *[getattr(grad, f) for f in vars(grad)], ll), z1
+
+    (out_card, z_card), secs = timed(lambda: slds_oracle(
+        dev, sp, ys, x0, z0, draws, wts))
+    out_cpu, z_cpu = slds_oracle(cpu, sp, ys, x0, z0, draws, wts)
+    d_slds = rel(out_card, out_cpu)
+    z_same = bool(torch.equal(z_card.cpu(), z_cpu))
+    phase("27 slds card-cpu", f"K=2, n=m=1, T={T_s}, {n_s} chains, float64, "
+          f"on shared draws: x_forward_messages, x_latent_var_sample, "
+          f"gibbs_step and windowed_complete_gradient, largest normwise "
+          f"relative difference {d_slds:.3e} (bound 1e-9); the sweep's z "
+          f"paths equal {z_same}; {secs:.2f} s on {dev.type}")
+    if not (d_slds <= 1e-9 and z_same):
+        raise AssertionError(f"SLDS card vs CPU {d_slds}, z equal {z_same}")
+
+    # (d) a Gibbs sweep of 1024 chains and complete-data SGLD at 8192
+    # chains (the driver grid's S=16, B=4, one latent draw after 5 sweeps,
+    # 5 sweeps of thinning), T=1000
+    ys_d = ys.to(dev)
+    Cg, sweeps = sizes["gibbs"]
+    smp = samplers.SLDSSampler(ys_d, device=dev, seed=1,
+                               parameters=params_map(
+                                   lambda v: v.expand((Cg,) + v.shape[1:])
+                                   .contiguous(), truth))
+    smp.sample_gibbs()
+    _, secs = timed(lambda: [smp.sample_gibbs() for _ in range(sweeps)])
+    ops = device_ops(smp.sample_gibbs)[1] if cuda else None
+    check_finite("SLDS Gibbs", smp.parameters.A, smp.parameters.LQinv_vec)
+    gibbs_s = secs / sweeps
+    phase("27 slds Gibbs", f"{sweeps} sweeps of {Cg} chains at T={T_s} in "
+          f"{secs:.3f} s, {gibbs_s:.4f} s a sweep, {ops} device operations "
+          f"a sweep ({card})")
+    Cs, steps = sizes["sgld"]
+    kw = dict(subsequence_length=16, buffer_length=4, latent_draws=1,
+              latent_burnin=5)
+    smp = samplers.SLDSSampler(ys_d, device=dev, seed=2,
+                               parameters=params_map(
+                                   lambda v: v.expand((Cs,) + v.shape[1:])
+                                   .contiguous(), truth))
+    smp.sample_sgld(0.05, **kw)
+    _, secs = timed(lambda: [smp.sample_sgld(0.05, **kw)
+                             for _ in range(steps)])
+    ops = device_ops(lambda: smp.sample_sgld(0.05, **kw))[1] if cuda \
+        else None
+    check_finite("SLDS SGLD", smp.parameters.A, smp.parameters.LQinv_vec)
+    sgld_rate = Cs * steps / secs
+    phase("27 slds SGLD", f"complete-data SGLD, epsilon 0.05, S=16, B=4, "
+          f"1 + 5 + 5 latent sweeps: {Cs} chains x {steps} steps in "
+          f"{secs:.3f} s, {sgld_rate:,.0f} steps/s, {ops} device "
+          f"operations a step ({card})")
+
+    phase("27 seconds", f"(c, d) {time.perf_counter() - t_phase:.1f} s")
+
+    # (e) the distributional anchor: Gibbs against full-series complete
+    # SGLD from the truth, chain-batched
+    az = sizes["anchor"]
+    a_truth = slds.from_values([[0.95, 0.05], [0.05, 0.95]],
+                               [[[0.9]], [[-0.9]]], [[[0.3]], [[0.3]]],
+                               [[1.0]], [[0.1]])
+    a_ys = slds.generate_data(torch.Generator().manual_seed(3), a_truth,
+                              az["T"])[0].to(dev)
+    a_truth = a_truth.to(dev)
+    Ca = az["chains"]
+    many = params_map(lambda v: v.expand((Ca,) + v.shape[1:]).contiguous(),
+                      a_truth)
+
+    def coords(p):
+        return torch.cat([p.A.reshape(Ca, -1), p.LQinv_vec.reshape(Ca, -1)],
+                         -1)
+
+    g = samplers.SLDSSampler(a_ys, device=dev, seed=1, parameters=many)
+    kept = []
+
+    def gibbs_run():
+        for i in range(az["sweeps"]):
+            g.sample_gibbs()
+            g.project_parameters()
+            if i >= az["sweep_burn"]:
+                kept.append(coords(g.parameters))
+    _, secs_g = timed(gibbs_run)
+    G = torch.cat(kept)
+    s = samplers.SLDSSampler(a_ys, device=dev, seed=2, parameters=many)
+    akw = dict(subsequence_length=-1, latent_draws=1,
+               latent_burnin=az["latent_burnin"], latent_thinning=0)
+    hist = []
+
+    def sgld_run():
+        for _ in range(az["steps"]):
+            s.sample_sgld(az["eps"], **akw)
+            hist.append(coords(s.parameters))
+    _, secs_s = timed(sgld_run)
+    S = torch.cat(hist[-az["keep"]:])
+    check_finite("SLDS anchor", G, S)
+    shift = ((G.mean(0) - S.mean(0)).abs() / G.std(0)).cpu().numpy()
+    ratio = (S.std(0) / G.std(0)).cpu().numpy()
+    names = ["A_0", "A_1", "LQinv_0", "LQinv_1"]
+    phase("27 slds anchor", f"T={az['T']}: Gibbs {Ca} chains x "
+          f"{az['sweeps']} sweeps ({secs_g:.1f} s, the last "
+          f"{az['sweeps'] - az['sweep_burn']} kept) against full-series "
+          f"complete SGLD (epsilon {az['eps']}, {az['latent_burnin']} latent "
+          f"sweeps) {Ca} chains x {az['steps']} steps ({secs_s:.1f} s, the "
+          f"last {az['keep']} kept) from the truth: shifts (sd) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in zip(names, shift))
+          + " (held below 0.5); sd ratios "
+          + ", ".join(f"{k} {v:.3f}" for k, v in zip(names, ratio))
+          + f" (held in 0.5-1.6); Gibbs posterior sd "
+          f"{G.std(0).cpu().numpy().round(4)}")
+    if not (shift.max() < ANCHOR_SHIFT and ratio.min() > ANCHOR_RATIO[0]
+            and ratio.max() < ANCHOR_RATIO[1]):
+        raise AssertionError(f"SLDS anchor: shifts {shift}, ratios {ratio}")
+
+    phase("27 seconds", f"(e) {time.perf_counter() - t_phase:.1f} s")
+
+    # (f) the experiment driver's SLDS grid: setup at T=1000, GIBBS and
+    # SGLD_COMPLETE (iterations cut), eval, --num_chains 2 raising
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_27_")
+    args = driver.build_parser().parse_args([
+        "--path", os.path.join(tmp, "slds"), "--model", "slds", "--device",
+        dev.type, "--T", str(T_s), "--T_test", str(T_s)])
+    args.num_to_eval = sizes["driver_eval"]
+    grid = [dict(o, max_num_iters=sizes["driver_iters"])
+            for o in driver.default_sampler_grid("slds")]
+    opts, secs = timed(lambda: driver.do_setup(args, grid))
+    phase("27 driver setup", f"slds T={T_s}: {len(opts)} experiments "
+          f"({', '.join(sorted({o['name'] for o in opts}))}; inits "
+          f"{args.init_methods}) in {secs:.2f} s; max_num_iters cut to "
+          f"{sizes['driver_iters']}")
+    for o in opts:
+        smp, secs = timed(lambda: driver.do_fit(args, o))
+        finite = all(bool(torch.isfinite(getattr(smp.parameters, f)).all())
+                     for f in ("logit_pi", "A", "LQinv_vec", "LRinv_vec"))
+        if not finite and (o["init_method"] == "truth"
+                           or o["name"] == "GIBBS"):
+            raise AssertionError(f"SLDS driver fit {o['experiment_id']}")
+        phase("27 driver fit", f"{o['name']} init={o['init_method']}: "
+              f"{sizes['driver_iters']} iterations x "
+              f"{o.get('steps_per_iteration', 1)} steps in {secs:.2f} s; "
+              f"parameters finite {finite}")
+    ev = next(o for o in opts if o["name"] == "SGLD_COMPLETE"
+              and o["init_method"] == "truth")
+    _, secs = timed(lambda: driver.do_eval(args, ev, "half_avg_test"))
+    rows = driver.tables.read_csv(os.path.join(
+        tmp, "slds", "out", "eval",
+        f"{ev['experiment_id']}_half_avg_test_metrics.csv")).rows
+    lj = [r["value"] for r in rows if r["metric"] == "logjoint"]
+    phase("27 driver eval", f"SGLD_COMPLETE (truth init): half_avg_test in "
+          f"{secs:.2f} s ({args.num_to_eval} points, the noisy log-joint "
+          f"of the full-series complete score): logjoint {lj}")
+    if not (lj and np.all(np.isfinite(lj))):
+        raise AssertionError(f"SLDS eval rows {rows}")
+    args.num_chains = 2
+    for o in opts:
+        try:
+            driver.do_fit(args, o)
+        except ValueError as e:
+            msg = str(e)
+        else:
+            raise AssertionError("--num_chains 2 ran for the SLDS")
+    phase("27 driver multichain", f"--num_chains 2 raises for GIBBS and "
+          f"SGLD_COMPLETE: {msg}")
+    phase("27 seconds", f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(gibbs_s=gibbs_s, sgld_rate=sgld_rate, timing=timing,
+                anchor=(shift, ratio))
 
 
 def paris_phase(dev, card, sizes=PARIS_SIZES):
@@ -3579,6 +3992,10 @@ def main():
 
     # 26. the HMM family (no kernel of its own: exact messages, SCIR, Gibbs)
     hmm_phase(dev, card)
+
+    # 27. the parallel-in-time messages and the SLDS (no kernel of their
+    # own: associative scans, message loops, Gibbs, complete-data SGLD)
+    parallel_slds_phase(dev, card)
 
     main_shape = ra_times["K2b"]
     k1_tpu = "sgmcmc_tpu/ops/pallas/fused_pf.py:121"

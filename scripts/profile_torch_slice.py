@@ -4,7 +4,7 @@
     python3 scripts/profile_torch_slice.py [--chains 8192] [--iters 20]
         [--runs 7] [--resampler systematic|multinomial|stratified]
         [--particles 1024] [--rng host|kernel]
-        [--model svm|lgssm|lgssm2|garch|svjm|gauss_hmm|arphmm]
+        [--model svm|lgssm|lgssm2|garch|svjm|gauss_hmm|arphmm|slds]
         [--kernel optimal|prior] [--kind pf|marginal|complete] [--gibbs]
         [--pf poyiadjis_N|paris|paris_ar|...] [--subsequence 40]
         [--buffer 10] [--T 1000]
@@ -49,8 +49,14 @@ experiment driver's true parameters; start pi uniform, mu = -0.5, 0.5 or
 D = 0.3, -0.3, R = 1; float64, no particle filter, so ``--kind`` defaults
 to ``marginal``; the driver's grid is ``--subsequence 16 --buffer 4``),
 where ``--iter-type SCIR`` times ``--iters`` ``sample_sgld_scir`` steps of
-every chain and ``--iter-type Gibbs`` (as ``--gibbs``) Gibbs sweeps.  It
-prints:
+every chain and ``--iter-type Gibbs`` (as ``--gibbs``) Gibbs sweeps.
+``--model slds`` runs ``SLDSSampler`` (K=2, n=m=1, at the experiment
+driver's true parameters; start pi uniform, A = 0.5, -0.5, Q = R = 1;
+float64, no particle filter): ``--iter-type SGLD`` times ``--iters``
+``sample_sgld`` steps of every chain on the complete-data score at the
+driver grid's setting (epsilon 0.05, ``--subsequence 16 --buffer 4``,
+one latent draw after 5 burn-in sweeps, 5 sweeps of thinning), and
+``--iter-type Gibbs`` Gibbs sweeps.  It prints:
   - the card's ``nvidia-smi`` name and power limit;
   - aggregate steps/s of ``--runs`` timed fits after one warm-up (each run,
     then the median and the lower and upper quartile);
@@ -124,7 +130,7 @@ def main():
     ap.add_argument("--rng", default="host", choices=("host", "kernel"))
     ap.add_argument("--model", default="svm",
                     choices=("svm", "lgssm", "lgssm2", "garch", "svjm",
-                             "gauss_hmm", "arphmm"))
+                             "gauss_hmm", "arphmm", "slds"))
     ap.add_argument("--kernel", default=None,
                     choices=("optimal", "prior", "laplace", "ep", "ep_avg"))
     ap.add_argument("--kind", default=None,
@@ -142,7 +148,8 @@ def main():
     ap.add_argument("--lag", type=int, default=None)
     ap.add_argument("--predictive", type=int, default=None)
     args = ap.parse_args()
-    hmm = args.model in ("gauss_hmm", "arphmm")
+    hmm = args.model in ("gauss_hmm", "arphmm", "slds")
+    slds_sgld = args.model == "slds" and args.iter_type == "SGLD"
     args.kind = args.kind or ("marginal" if hmm else "pf")
     args.gibbs = args.gibbs or args.iter_type == "Gibbs"
     scir = args.iter_type == "SCIR"
@@ -153,7 +160,7 @@ def main():
     from sgmcmc_tpu_torch.inference import samplers
     from sgmcmc_tpu_torch.experiments.driver import _make_true_params
     from sgmcmc_tpu_torch.models import (arphmm, garch, gauss_hmm, lgssm,
-                                         registry, svjm, svm)
+                                         registry, slds, svjm, svm)
     from sgmcmc_tpu_torch.models.base import params_map
 
     def vector_sampler(observations, **kw):
@@ -181,6 +188,9 @@ def main():
         "arphmm": (samplers.ARPHMMSampler, _make_true_params("arphmm"),
                    arphmm.from_values([[0.5, 0.5]] * 2, [[[0.3]], [[-0.3]]],
                                       [[1.0]])),
+        "slds": (samplers.SLDSSampler, _make_true_params("slds"),
+                 slds.from_values([[0.5, 0.5]] * 2, [[[0.5]], [[-0.5]]],
+                                  [[[1.0]], [[1.0]]], [[1.0]], [[1.0]])),
     }[args.model]
 
     card = subprocess.run(
@@ -193,7 +203,7 @@ def main():
     api = (registry.get_model("lgssm", n=2, m=2) if args.model == "lgssm2"
            else registry.get_model(args.model))
     T_len = args.T
-    ys, _ = api.generate_data(gen, truth.to(dev), T_len)
+    ys = api.generate_data(gen, truth.to(dev), T_len)[0]
     sampler = cls(observations=ys, device="cuda", seed=2)
     sampler.parameters = start
     full = args.subsequence == -1
@@ -201,6 +211,10 @@ def main():
               buffer_length=0 if full else args.buffer, pf=args.pf,
               resampler=args.resampler, rng=args.rng, kernel=args.kernel,
               kind=args.kind)
+    if args.model == "slds":
+        kw = dict(subsequence_length=args.subsequence,
+                  buffer_length=kw["buffer_length"], latent_draws=1,
+                  latent_burnin=5)
     Z = 1 if hmm else sampler.model.get_kernel(args.kernel).noise_dim
     if calls:
         sampler.parameters = truth
@@ -212,10 +226,10 @@ def main():
     elif args.gibbs:
         print(f"config: {args.model} blocked Gibbs, {args.chains} chains, "
               f"{args.iters} sweeps, T={T_len}")
-    elif scir:
-        print(f"config: {args.model} SCIR, {args.chains} chains, S="
-              f"{kw['subsequence_length']}, B={kw['buffer_length']}, "
-              f"T={T_len}")
+    elif scir or slds_sgld:
+        print(f"config: {args.model} {args.iter_type}, {args.chains} "
+              f"chains, S={kw['subsequence_length']}, "
+              f"B={kw['buffer_length']}, T={T_len}")
     elif args.kind != "pf":
         print(f"config: {args.iter_type}, {args.model} kind={args.kind}, "
               f"{args.chains} chains, S={kw['subsequence_length']}, "
@@ -230,7 +244,7 @@ def main():
         kw.update(centering_parameters=start, centering_gradient=(
             sampler.noisy_gradient(**kw)))
 
-    if args.gibbs or scir:
+    if args.gibbs or scir or slds_sgld:
         sampler.parameters = params_map(lambda x: x.expand(
             (args.chains,) + x.shape[1:]).contiguous(), start)
 
@@ -243,9 +257,11 @@ def main():
                 target=args.target, lag=args.lag, N=N, kernel=args.kernel,
                 pf="filter" if args.lag == 0 else args.pf)
             return float(mean.sum())
-        if args.gibbs or scir:
+        if args.gibbs or scir or slds_sgld:
             for _ in range(args.iters):
-                if scir:
+                if slds_sgld:
+                    sampler.sample_sgld(0.05, **kw)
+                elif scir:
                     sampler.sample_sgld_scir(
                         0.1, subsequence_length=kw["subsequence_length"],
                         buffer_length=kw["buffer_length"])

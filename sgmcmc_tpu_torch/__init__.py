@@ -27,6 +27,7 @@ _EXPORTS = {
     "ARPHMMSampler": "sgmcmc_tpu_torch.inference.samplers",
     "SeqGaussHMMSampler": "sgmcmc_tpu_torch.inference.samplers",
     "SeqARPHMMSampler": "sgmcmc_tpu_torch.inference.samplers",
+    "SLDSSampler": "sgmcmc_tpu_torch.inference.samplers",
     "pack_sequences": "sgmcmc_tpu_torch.inference.samplers",
     "sampler_for_model": "sgmcmc_tpu_torch.inference.samplers",
     "ModelAPI": "sgmcmc_tpu_torch.models.registry",

@@ -47,7 +47,7 @@ import torch
 from ..evaluation.evaluator import (OfflineEvaluator, SamplerEvaluator,
                                     half_average_parameters_list)
 from ..inference import sgmcmc
-from ..inference.samplers import Sampler, check_ported, sampler_for_model
+from ..inference.samplers import Sampler, sampler_for_model
 from ..io import checkpoint as ckpt
 from ..io import tables
 from ..metrics import metric_functions as mf
@@ -101,8 +101,6 @@ def convert_gradient(model_name: str, params, grad):
     -LQinv^2, so g_sigma = -g_LQinv * LQinv^2; with Q = LQinv^-2 (the
     LGSSM), g_Q = -0.5 * g_LQinv * LQinv^3.  ``params`` / ``grad`` are one
     chain's parameters (tensors on any device, or NumPy)."""
-    check_ported(model_name)
-
     def scal(x):
         return float(_flat(x)[0])
 
@@ -142,6 +140,17 @@ def convert_gradient(model_name: str, params, grad):
         grads = dict(A=_flat(grad.A),
                      Q=-0.5 * _flat(grad.LQinv_vec) * LQ ** 3,
                      R=-0.5 * _flat(grad.LRinv_vec) * LR ** 3)
+    elif model_name == "slds":
+        # the scalar-block SLDS (n = m = 1): logit_pi and A in storage
+        # coordinates; sigma_k = 1/LQinv_k and tau = 1/LRinv (no abs: the
+        # -g L^2 chain rule assumes tau = 1/L; the projection keeps L > 0
+        # on the driver's traces)
+        LQ, LR = _flat(params.LQinv_vec), _flat(params.LRinv_vec)
+        vals = dict(logit_pi=_flat(params.logit_pi), A=_flat(params.A),
+                    sigma=1.0 / LQ, tau=1.0 / LR)
+        grads = dict(logit_pi=_flat(grad.logit_pi), A=_flat(grad.A),
+                     sigma=-_flat(grad.LQinv_vec) * LQ ** 2,
+                     tau=-_flat(grad.LRinv_vec) * LR ** 2)
     elif model_name in HMM_MODELS:
         # the m = 1 HMMs of the driver's setup: logit_pi rows and the
         # location block in storage coordinates; tau_k = 1/LRinv_k, so
@@ -159,9 +168,7 @@ def convert_gradient(model_name: str, params, grad):
 
 
 def _make_true_params(model_name: str, dtype=torch.float64, device=None):
-    """The synthetic experiments' true parameters (one chain); the
-    models not ported yet raise ``NotImplementedError``."""
-    check_ported(model_name)
+    """The synthetic experiments' true parameters (one chain)."""
     p = TRUE_PARAMS[model_name]
     if model_name == "svm":
         from ..models import svm
@@ -184,6 +191,10 @@ def _make_true_params(model_name: str, dtype=torch.float64, device=None):
         from ..models import arphmm
         return arphmm.from_values(p["pi"], p["D"], p["R"], dtype=dtype,
                                   device=device)
+    if model_name == "slds":
+        from ..models import slds
+        return slds.from_values(p["pi"], p["A"], p["Q"], p["C"], p["R"],
+                                dtype=dtype, device=device)
     raise ValueError(model_name)
 
 
@@ -221,13 +232,17 @@ def do_setup(args, sampler_grid=None):
         ckpt.make_path(d)
     model = get_model(model_name)
     gen = torch.Generator(device=args.device).manual_seed(args.seed)
-    ys, xs = model.generate_data(gen, true_params, args.T)
-    ys_test, xs_test = model.generate_data(gen, true_params, args.T_test)
-    data = dict(observations=ckpt.tree_to_numpy(ys),
-                latent_vars=ckpt.tree_to_numpy(xs),
-                test_observations=ckpt.tree_to_numpy(ys_test),
-                test_latent_vars=ckpt.tree_to_numpy(xs_test),
+    # the SLDS's generate_data returns (y, x, z), the others' (y, x)
+    train = model.generate_data(gen, true_params, args.T)
+    test = model.generate_data(gen, true_params, args.T_test)
+    data = dict(observations=ckpt.tree_to_numpy(train[0]),
+                latent_vars=ckpt.tree_to_numpy(train[1]),
+                test_observations=ckpt.tree_to_numpy(test[0]),
+                test_latent_vars=ckpt.tree_to_numpy(test[1]),
                 parameters=ckpt.tree_to_numpy(true_params))
+    if len(train) > 2:
+        data["latent_z"] = ckpt.tree_to_numpy(train[2])
+        data["test_latent_z"] = ckpt.tree_to_numpy(test[2])
     ckpt.save_pickle(os.path.join(p["in"], "data.p"), data)
 
     prior = model.default_prior(device=args.device)
@@ -260,8 +275,17 @@ def default_sampler_grid(model_name):
     """The default experiment grid: Poyiadjis O(N) with and without a
     buffer, Nemeth and PaRIS; the LGSSM adds Gibbs and the exact-message
     (Kalman) score.  The HMMs have no particle filter: Gibbs, exact-message
-    SGLD with and without a buffer, and SCIR."""
-    check_ported(model_name)
+    SGLD with and without a buffer, and SCIR.  The SLDS: Gibbs and the
+    buffered complete-data SGLD, its only gradient family."""
+    if model_name == "slds":
+        grids = [
+            dict(iter_type=["Gibbs"], name=["GIBBS"]),
+            dict(iter_type=["SGLD"], epsilon=[0.05],
+                 subsequence_length=[16], buffer_length=[4],
+                 steps_per_iteration=[5], latent_draws=[1],
+                 latent_burnin=[5], name=["SGLD_COMPLETE"]),
+        ]
+        return [o for g in grids for o in cfg.parameter_grid(g)]
     if model_name in HMM_MODELS:
         grids = [
             dict(iter_type=["Gibbs"], name=["GIBBS"]),
@@ -303,13 +327,17 @@ def default_sampler_grid(model_name):
 def _build_sampler(options, data, init_params, device,
                    obs_key: str = "observations") -> Sampler:
     """The model's sampler on ``device`` at ``init_params`` (one chain,
-    NumPy or tensor leaves, cast to the model's dtype)."""
-    return sampler_for_model(
-        options["model"], observations=data[obs_key],
-        seed=options.get("seed", 0), device=device,
-        parameters=ckpt.tree_to_torch(
-            init_params, device=device,
-            dtype=get_model(options["model"]).dtype))
+    NumPy or tensor leaves, cast to the model's dtype); the SLDS's sizes
+    (states, latent and observation dimensions) are the parameters'."""
+    name = options["model"]
+    params = ckpt.tree_to_torch(init_params, device=device,
+                                dtype=get_model(name).dtype)
+    sizes = {}
+    if name == "slds":
+        sizes = dict(num_states=params.num_states, n=params.n, m=params.m)
+    return sampler_for_model(name, observations=data[obs_key],
+                             seed=options.get("seed", 0), device=device,
+                             parameters=params, **sizes)
 
 
 def _metric_fns(options, data):
@@ -384,6 +412,11 @@ def do_fit_multichain(args, options):
             f"--num_chains {C} needs a gradient iter_type "
             f"(SGLD/SGRLD/SGD/ADAGRAD), not {iter_type!r}")
     sampler = _build_sampler(options, data, init, args.device)
+    if not hasattr(sampler, "fit_scan"):
+        raise ValueError(
+            f"--num_chains needs a fit_scan-capable sampler; "
+            f"{type(sampler).__name__} (model {options['model']!r}) has "
+            f"none: run it single-chain")
     step_kwargs = cfg.sampler_kwargs(options)
     if sampler.model.has_pf and step_kwargs.get("kind") is None:
         step_kwargs.setdefault("rng", _sampler_rng(sampler.device))
@@ -669,8 +702,12 @@ def do_eval(args, options, target: str):
         N=args.eval_N, subsequence_length=-1))
     if args.eval_predictive > 0:
         # held-out k-step predictive log-likelihood rows (the particle
-        # filter's, slot 0 its log-likelihood; the HMMs' exact one)
-        if sampler.model.has_pf:
+        # filter's, slot 0 its log-likelihood; the HMMs' exact one); the
+        # SLDS has none
+        if not hasattr(sampler, "predictive_loglikelihood"):
+            logger.info("model %s has no predictive loglikelihood; "
+                        "skipping the predictive metric", options["model"])
+        elif sampler.model.has_pf:
             metric_fns.append(mf.noisy_predictive_logjoint_loglike_metric(
                 args.eval_predictive, kind="pf", N=args.eval_N))
         else:

@@ -4,7 +4,8 @@
 ``fit_scan_chunked``, the chain plumbing, the likelihood surface, the
 predict surface (``predict``, ``predictive_loglikelihood``, ``simulate``
 and their aliases), the multi-sequence samplers, blocked Gibbs (LGSSM,
-GaussHMM, ARPHMM) and SCIR's SGLD on the HMMs' transition simplex).
+GaussHMM, ARPHMM), SCIR's SGLD on the HMMs' transition simplex and the
+SLDS's blocked Gibbs and complete-data SGLD (:class:`SLDSSampler`)).
 
 A :class:`Sampler` holds the model, the observations (in the model's
 dtype: float32, float64 for the HMM family), the prior, the parameters
@@ -27,9 +28,12 @@ import torch
 
 from ..io.checkpoint import unstack_trace
 from ..models.base import params_map
+from ..models import slds as slds_mod
 from ..models.registry import ModelAPI, get_model
 from ..ops import hmm as hmm_ops
-from ..ops.buffered import run_buffered_pf
+from ..ops.buffered import run_buffered_pf, window_weights
+from ..ops.subsequence import (sample_buffered_window, slice_window,
+                               window_length)
 from ..utils.profiling import sync
 from . import sgmcmc
 
@@ -53,6 +57,40 @@ _STEP_OF = {"SGLD": "sgld", "SGRLD": "sgrld", "SGD": "sgd", "SGRD": "sgrd"}
 FIT_SCAN_TYPES = (*_STEP_OF, "ADAGRAD", "SGLD-CV")
 
 
+def _device(device) -> torch.device:
+    """``device`` as a torch.device; the card raises when there is none
+    (no fallback to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r} needs a CUDA card but no "
+                           "CUDA device is available; pass device='cpu' to "
+                           "run on the CPU")
+    return dev
+
+
+def _as_observations(observations, device, dtype) -> torch.Tensor:
+    """Observations (array or tensor) on ``device`` in ``dtype``, a 1-D
+    series as ``[T, 1]``."""
+    obs = torch.as_tensor(np.asarray(observations) if not isinstance(
+        observations, torch.Tensor) else observations)
+    obs = obs.to(device=device, dtype=dtype)
+    return obs[:, None] if obs.ndim == 1 else obs
+
+
+def _per_chain(values: torch.Tensor):
+    """A float for one chain's ``[1]`` values, else the ``[C]`` tensor;
+    NaNs raise."""
+    if bool(torch.isnan(values).any()):
+        raise ValueError("NaNs in loglikelihood")
+    return float(values[0]) if values.shape[0] == 1 else values
+
+
+def _check_gradient(grad) -> None:
+    """Raise on a NaN in any field of ``grad`` (one host read)."""
+    if bool(torch.stack([torch.isnan(x).any() for x in _leaves(grad)]).any()):
+        raise ValueError("NaNs in gradient")
+
+
 def _to_cpu(params):
     return None if params is None else params_map(lambda x: x.cpu(), params)
 
@@ -66,18 +104,11 @@ class Sampler:
 
     def __init__(self, model: ModelAPI | str, observations=None, prior=None,
                  parameters=None, seed: int = 0, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device={str(device)!r} needs a CUDA "
-                               "card but no CUDA device is available; pass "
-                               "device='cpu' to run on the CPU")
+        self.device = _device(device)
         self.model = get_model(model) if isinstance(model, str) else model
-        self.observations = None
-        if observations is not None:
-            obs = torch.as_tensor(np.asarray(observations) if not isinstance(
-                observations, torch.Tensor) else observations)
-            obs = obs.to(device=self.device, dtype=self.model.dtype)
-            self.observations = obs[:, None] if obs.ndim == 1 else obs
+        self.observations = (None if observations is None else
+                             _as_observations(observations, self.device,
+                                              self.model.dtype))
         self.prior = (self.model.default_prior(device=self.device)
                       if prior is None else prior)
         self.generator = torch.Generator(device=self.device)
@@ -210,13 +241,6 @@ class Sampler:
         return self._cache[key]
 
     # -- likelihoods -------------------------------------------------------
-    def _per_chain(self, values: torch.Tensor):
-        """A float for a one-chain sampler, else the ``[C]`` tensor; NaNs
-        raise."""
-        if bool(torch.isnan(values).any()):
-            raise ValueError("NaNs in loglikelihood")
-        return float(values[0]) if values.shape[0] == 1 else values
-
     def noisy_loglikelihood(self, kind: str | None = None, **kwargs):
         """A noisy log-likelihood per chain: the particle filter's
         (``"pf"``) or the exact-message score's buffered one
@@ -235,7 +259,7 @@ class Sampler:
                 self.generator, self.parameters, self.observations)
         else:
             raise ValueError(f"Unrecognized kind = '{kind}'")
-        return self._per_chain(loglik)
+        return _per_chain(loglik)
 
     def noisy_logjoint(self, return_loglike: bool = False, **kwargs):
         """noisy_loglikelihood + logprior per chain."""
@@ -247,7 +271,7 @@ class Sampler:
         return self._joint(self.exact_loglikelihood(), return_loglike)
 
     def _joint(self, ll, return_loglike: bool):
-        lp = self._per_chain(self.model.logprior(self.prior, self.parameters))
+        lp = _per_chain(self.model.logprior(self.prior, self.parameters))
         if return_loglike:
             return dict(logjoint=ll + lp, loglikelihood=ll)
         return ll + lp
@@ -257,7 +281,7 @@ class Sampler:
         if self.model.marginal_loglikelihood is None:
             raise NotImplementedError(
                 f"{self.model.name} has no exact marginal likelihood")
-        return self._per_chain(self.model.marginal_loglikelihood(
+        return _per_chain(self.model.marginal_loglikelihood(
             self.parameters, self.observations))
 
     def exact_gradient(self):
@@ -279,9 +303,8 @@ class Sampler:
         grad, _ = self._grad_fn(preconditioned=bool(preconditioner),
                                 is_scaled=is_scaled, **kwargs)(
             self.generator, self.parameters, self.observations)
-        if check_finite and bool(torch.stack(
-                [torch.isnan(x).any() for x in _leaves(grad)]).any()):
-            raise ValueError("NaNs in gradient")
+        if check_finite:
+            _check_gradient(grad)
         return grad
 
     def _step(self, name: str, epsilon: float, **kwargs):
@@ -1096,7 +1119,7 @@ class SeqSampler(Sampler):
         """The score's log-likelihood per chain (any ``kind``)."""
         _, loglik = self._grad_fn(**kwargs)(self.generator, self.parameters,
                                             self.observations)
-        return self._per_chain(loglik)
+        return _per_chain(loglik)
 
     def exact_loglikelihood(self):
         """Sum of the sequences' exact marginal log-likelihoods per chain
@@ -1111,8 +1134,8 @@ class SeqSampler(Sampler):
             sgmcmc.PFScoreConfig(n_particles=1, subsequence_length=-1),
             self.lengths)
         params = params_map(lambda x: x.double(), self.parameters)
-        return self._per_chain(score(None, params,
-                                     self.observations.double())[1])
+        return _per_chain(score(None, params,
+                                self.observations.double())[1])
 
     def _sub_sampler(self, i: int) -> Sampler:
         """A single-sequence view of sequence i, sharing the model, the
@@ -1249,27 +1272,212 @@ class SeqARPHMMSampler(SeqSampler):
                                    p=p), observations, **kw)
 
 
-# the model names of the JAX package whose samplers are not ported yet
-_UNPORTED_SAMPLERS = {"slds": "slice 13 (the SLDS)"}
+class SLDSSampler:
+    """Blocked Gibbs and buffered complete-data SGLD for the switching LDS
+    (counterpart of the JAX package's ``SLDSSampler``): the sampler holds
+    the latent states beside the parameters of every chain, ``x [C, T,
+    n]`` and ``z [C, T]``, and alternates x | z, z | x and theta | x, z.
+    The SLDS has no marginal-likelihood gradient; its SG-MCMC score is the
+    complete-data one, averaged over latent Gibbs draws on the window.
+    Float64 on the card unless ``device="cpu"``, with a seeded
+    ``torch.Generator``; the likelihoods return a float for one chain and
+    a ``[C]`` tensor for C."""
+
+    # the score's own options, and the generic driver and evaluator
+    # keywords it takes and ignores (the SLDS has one gradient family);
+    # anything else is a mistyped latent option and raises
+    _SCORE_KWARGS = frozenset((
+        "subsequence_length", "buffer_length", "latent_draws",
+        "latent_burnin", "latent_thinning"))
+    _IGNORED_KWARGS = frozenset((
+        "kind", "pf", "N", "kernel", "resampler", "resample_mode",
+        "minibatch_size", "partition_style", "lambduh", "Ntilde",
+        "bw_chunk", "ess_threshold"))
+
+    def __init__(self, observations, num_states: int = 2, n: int = 1,
+                 m: int = 1, prior=None, parameters=None, seed: int = 0,
+                 device="cuda"):
+        self.device = _device(device)
+        self.model = get_model("slds", num_states=num_states, n=n, m=m)
+        self.observations = _as_observations(observations, self.device,
+                                             self.model.dtype)
+        self.prior = (self.model.default_prior(device=self.device)
+                      if prior is None else prior)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self._cache: dict = {}
+        # the driver's resume state reads it; the SLDS has no ADAGRAD
+        self._adagrad_state = None
+        self.x = self.z = None
+        self.parameters = (parameters if parameters is not None else
+                           slds_mod.project_parameters(slds_mod.sample_prior(
+                               self.prior, self.generator, 1)))
+
+    @property
+    def parameters(self):
+        return self._parameters
+
+    @parameters.setter
+    def parameters(self, params):
+        self._parameters = params.to(self.device)
+
+    @property
+    def T(self) -> int:
+        return int(self.observations.shape[0])
+
+    def _latents(self):
+        """(x, z) of every chain, zeros for chains that have none yet (a
+        new sampler, or a new number of chains)."""
+        C, n = self.parameters.num_chains, self.parameters.n
+        if self.z is None or self.z.shape[0] != C:
+            self.z = torch.zeros((C, self.T), dtype=torch.int64,
+                                 device=self.device)
+            self.x = torch.zeros((C, self.T, n), dtype=self.model.dtype,
+                                 device=self.device)
+        return self.x, self.z
+
+    def sample_gibbs(self):
+        """One blocked sweep (x | z, z | x, theta | x, z) of every chain."""
+        x, z = self._latents()
+        self.parameters, self.x, self.z = slds_mod.gibbs_step(
+            self.generator, self.prior, self.parameters, self.observations,
+            x, z)
+        return self.parameters
+
+    def project_parameters(self):
+        self.parameters = slds_mod.project_parameters(self.parameters)
+        return self.parameters
+
+    def exact_loglikelihood(self, given: str = "z"):
+        """log p(y | z) at the sampler's z (``given="z"``) or log p(y, x)
+        with z summed out at its x (``given="x"``), per chain."""
+        if given not in ("z", "x"):
+            raise ValueError(f"given must be 'z' or 'x', not {given!r}")
+        x, z = self._latents()
+        fn = (slds_mod.x_marginal_loglikelihood if given == "z"
+              else slds_mod.z_marginal_loglikelihood)
+        return _per_chain(fn(self.parameters, self.observations,
+                             z if given == "z" else x))
+
+    def fit(self, num_iters: int, output_all: bool = False):
+        """``num_iters`` Gibbs sweeps, each projected; ``output_all``
+        returns the parameters before and after every sweep."""
+        out = [self.parameters] if output_all else None
+        for _ in range(num_iters):
+            self.sample_gibbs()
+            self.project_parameters()
+            if output_all:
+                out.append(self.parameters)
+        return out if output_all else self.parameters
+
+    # -- SG-MCMC on buffered complete-data gradients ----------------------
+    def _score_fn(self, S: int, B: int, latent_draws: int,
+                  latent_burnin: int, latent_thinning: int):
+        """score(generator, params, observations, draws=None) -> (gradient,
+        weighted loglik [C]): each chain samples a buffered window (the
+        whole series for ``S == -1`` or ``S >= T``), starts its latents
+        from a uniform z and an x draw, runs ``latent_burnin`` sweeps of
+        x | z and z | x on the window, then averages the weighted
+        complete-data score over ``latent_draws`` draws taken
+        ``latent_thinning`` sweeps apart."""
+        T = self.T
+        full = (S == -1) or (S >= T)
+        W = window_length(S, B, T)
+
+        def sweep(params, window, x, z, gen):
+            x = slds_mod.x_latent_var_sample(params, gen, window, z)
+            return x, slds_mod.z_latent_var_sample(params, gen, window, x)
+
+        def score(generator, params, observations, draws=None):
+            C, dt, dev = params.num_chains, observations.dtype, \
+                observations.device
+            if full:
+                window = observations
+                step_w = torch.ones((T,), dtype=dt, device=dev)
+            else:
+                win = sample_buffered_window(generator, S, B, T, C,
+                                             dtype=dt, device=dev)
+                window = slice_window(observations, win.window_start, W)
+                step_w, _ = window_weights(win.t1, win.tL, win.weights, W,
+                                           dt)
+            z = torch.randint(0, params.num_states, (C, W),
+                              generator=generator, device=dev)
+            x = slds_mod.x_latent_var_sample(params, generator, window, z)
+            for _ in range(latent_burnin):
+                x, z = sweep(params, window, x, z, generator)
+            grads, lls = [], []
+            for _ in range(latent_draws):
+                for _ in range(latent_thinning):
+                    x, z = sweep(params, window, x, z, generator)
+                grad, ll = slds_mod.windowed_complete_gradient(
+                    params, window, x, z, step_w)
+                grads.append(grad)
+                lls.append(ll)
+            return (params_map(lambda *gs: torch.stack(gs).mean(0), *grads),
+                    torch.stack(lls).mean(0))
+
+        return score
+
+    def _grad_fn(self, is_scaled: bool = True, **kwargs):
+        unknown = set(kwargs) - self._SCORE_KWARGS - self._IGNORED_KWARGS
+        if unknown:
+            raise TypeError(f"SLDSSampler got unknown options {unknown}")
+        S = kwargs.get("subsequence_length", -1)
+        B = max(kwargs.get("buffer_length", 0), 0)
+        latent = (kwargs.get("latent_draws", 1),
+                  kwargs.get("latent_burnin", 5),
+                  kwargs.get("latent_thinning", 5))
+        key = ("grad", S, B, latent, is_scaled)
+        if key not in self._cache:
+            self._cache[key] = sgmcmc.make_noisy_grad_fn(
+                self._score_fn(S, B, *latent),
+                lambda p: slds_mod.grad_logprior(self.prior, p), self.T,
+                is_scaled=is_scaled)
+        return self._cache[key]
+
+    def noisy_gradient(self, is_scaled: bool = True,
+                       check_finite: bool = True, **kwargs):
+        """The noisy complete-data gradient at the current parameters;
+        NaNs raise unless ``check_finite=False``."""
+        grad, _ = self._grad_fn(is_scaled=is_scaled, **kwargs)(
+            self.generator, self.parameters, self.observations)
+        if check_finite:
+            _check_gradient(grad)
+        return grad
+
+    def noisy_loglikelihood(self, **kwargs):
+        """The weighted complete-data log-likelihood of the score, per
+        chain."""
+        _, ll = self._grad_fn(**kwargs)(self.generator, self.parameters,
+                                        self.observations)
+        return _per_chain(ll)
+
+    def noisy_logjoint(self, return_loglike: bool = False, **kwargs):
+        """noisy_loglikelihood + logprior per chain."""
+        ll = self.noisy_loglikelihood(**kwargs)
+        lp = _per_chain(slds_mod.logprior(self.prior, self.parameters))
+        if return_loglike:
+            return dict(logjoint=ll + lp, loglikelihood=ll)
+        return ll + lp
+
+    def sample_sgld(self, epsilon, **kwargs):
+        """One projected SGLD step of every chain on the complete-data
+        score."""
+        new, _ = sgmcmc.sgld_step(self.generator, self.parameters,
+                                  self.observations, self._grad_fn(**kwargs),
+                                  epsilon, self.T)
+        self.parameters = slds_mod.project_parameters(new)
+        return self.parameters
 
 
-def check_ported(model_name: str) -> None:
-    """Raise ``NotImplementedError`` naming the slice for a model of the
-    JAX package whose sampler is not ported yet."""
-    if model_name in _UNPORTED_SAMPLERS:
-        raise NotImplementedError(
-            f"the {model_name} sampler is not ported yet (ROADMAP.md, "
-            f"Queue 1, {_UNPORTED_SAMPLERS[model_name]})")
-
-
-def sampler_for_model(model_name: str, **kwargs) -> Sampler:
+def sampler_for_model(model_name: str, **kwargs):
     """Model name -> sampler instance (the one dispatch point generic code
     uses); ``kwargs`` go to the sampler's constructor."""
     classes = {"svm": SVMSampler, "svjm": SVJMSampler,
                "garch": GARCHSampler, "lgssm": LGSSMSampler,
-               "gauss_hmm": GaussHMMSampler, "arphmm": ARPHMMSampler}
-    check_ported(model_name)
+               "gauss_hmm": GaussHMMSampler, "arphmm": ARPHMMSampler,
+               "slds": SLDSSampler}
     if model_name not in classes:
         raise ValueError(f"Unknown model '{model_name}' (choose from "
-                         f"{sorted([*classes, *_UNPORTED_SAMPLERS])})")
+                         f"{sorted(classes)})")
     return classes[model_name](**kwargs)

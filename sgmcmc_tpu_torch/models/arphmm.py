@@ -9,7 +9,6 @@ and this module adds the regression block: its gradient, prior, the
 matrix-normal-Wishart Gibbs update (its normals an input, as the
 Dirichlet's gammas and the Wishart's draws are), the projection (the
 spectral norm of each D_k) and data generation.
-``parallel_marginal_loglikelihood`` is ROADMAP.md, Queue 1, slice 12b.
 """
 from __future__ import annotations
 
@@ -133,6 +132,16 @@ def marginal_loglikelihood(params: ARPHMMParams, observations,
     return g._marginal_loglikelihood(emission_logliks, params, observations,
                                      forward_msg, backward_msg, weights,
                                      valid)
+
+
+def parallel_marginal_loglikelihood(params: ARPHMMParams, observations,
+                                    forward_msg=None, backward_msg=None
+                                    ) -> torch.Tensor:
+    """Exact log p(y) per chain in O(log T) depth (see
+    ``gauss_hmm.parallel_marginal_loglikelihood``)."""
+    return g._parallel_marginal_loglikelihood(emission_logliks, params,
+                                              observations, forward_msg,
+                                              backward_msg)
 
 
 def gradient_marginal_loglikelihood(params: ARPHMMParams, observations,

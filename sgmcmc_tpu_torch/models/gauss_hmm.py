@@ -17,8 +17,8 @@ Random draws are inputs where a test holds them against the JAX package:
 the FFBS and completion uniforms, the Dirichlet's unit gammas, the
 Wishart's chi-squares and off-diagonal normals and the means' normals
 (:class:`GibbsDraws`, :class:`PriorDraws`), SCIR's Poisson counts and
-gammas.  ``parallel_marginal_loglikelihood`` is ROADMAP.md, Queue 1,
-slice 12b.
+gammas.  ``parallel_marginal_loglikelihood`` is the full-data likelihood
+in O(log T) depth (``ops/hmm.parallel_forward_messages``).
 
 The exact surface of the family (everything but the emission, the
 location block of the gradient, prior and Gibbs update, and data
@@ -200,6 +200,13 @@ def _marginal_loglikelihood(emission, params, observations, forward_msg=None,
     fwd, bwd = _messages(params, forward_msg, backward_msg)
     return hmm.marginal_loglikelihood(emission(params, observations),
                                       params.pi, fwd, bwd, weights, valid)
+
+
+def _parallel_marginal_loglikelihood(emission, params, observations,
+                                     forward_msg=None, backward_msg=None):
+    fwd, bwd = _messages(params, forward_msg, backward_msg)
+    return hmm.parallel_marginal_loglikelihood(emission(params, observations),
+                                               params.pi, fwd, bwd)
 
 
 def _exact_statistics(params, logP, forward_msg, backward_msg, weights,
@@ -482,6 +489,16 @@ def marginal_loglikelihood(params: GaussHMMParams, observations,
     """Exact log p(y) per chain."""
     return _marginal_loglikelihood(emission_logliks, params, observations,
                                    forward_msg, backward_msg, weights, valid)
+
+
+def parallel_marginal_loglikelihood(params: GaussHMMParams, observations,
+                                    forward_msg=None, backward_msg=None
+                                    ) -> torch.Tensor:
+    """Exact log p(y) per chain by associative prefix products of the
+    per-step transition-emission matrices, in O(log T) depth."""
+    return _parallel_marginal_loglikelihood(emission_logliks, params,
+                                            observations, forward_msg,
+                                            backward_msg)
 
 
 def gradient_marginal_loglikelihood(params: GaussHMMParams, observations,

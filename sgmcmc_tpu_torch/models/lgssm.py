@@ -24,9 +24,9 @@ checks against them) do not move.  Random draws are inputs where a test
 holds them against the JAX package: the kernels' normals (``[C, N, n]``),
 the Gibbs sweep's (:class:`GibbsDraws`), the prior draw's
 (:class:`PriorDraws`), data generation's and the preconditioner's noise.
-The associative-scan functions of the JAX module
-(``parallel_marginal_loglikelihood`` and its two companions) need
-``ops/kalman_parallel.py``, which is ROADMAP.md, Queue 1, slice 12b.
+The ``parallel_*`` functions are the full-data likelihood, moments and
+score in O(log T) depth through ``ops/kalman_parallel.py``'s associative
+scans; no sampler routes to them.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import kalman
+from ..ops import kalman, kalman_parallel
 from ..ops.cuda.fused_pf import FusedModel
 from ..utils.distributions import (matrix_normal_logpdf, sample_wishart,
                                    wishart_logpdf)
@@ -298,6 +298,51 @@ def gradient_marginal_loglikelihood(params: LGSSMParams, observations,
         backward_msg or default_backward_message(params),
         None if weights is None else weights.double(), include_init,
         None if valid is None else valid.double()))
+
+
+def parallel_marginal_loglikelihood(params: LGSSMParams, observations,
+                                    forward_msg=None) -> torch.Tensor:
+    """Exact log p(y) per chain in float64 by the associative-scan Kalman
+    filter (``ops/kalman_parallel.py``): equal, up to rounding, to
+    :func:`marginal_loglikelihood`, in O(log T) depth for the full-data
+    passes over long series."""
+    params, observations, forward_msg = _f64(params, observations,
+                                             forward_msg)
+    return kalman_parallel.parallel_marginal_loglikelihood(
+        observations, *_mats(params),
+        forward_msg or default_forward_message(params))
+
+
+def parallel_latent_var_distr(params: LGSSMParams, observations,
+                              smoothed: bool = True, forward_msg=None):
+    """The smoothed (or, with ``smoothed=False``, filtered) marginals
+    (mean [C, T, n], cov [C, T, n, n]) in O(log T) depth; equal, up to
+    rounding, to :func:`latent_var_distr`."""
+    fwd = forward_msg or default_forward_message(params)
+    if smoothed:
+        return kalman_parallel.parallel_smoothed_moments(
+            observations, *_mats(params), fwd)
+    fm = kalman_parallel.parallel_filtered_moments(observations,
+                                                   *_mats(params), fwd)
+    return fm.mean, fm.cov
+
+
+def parallel_gradient_marginal_loglikelihood(params: LGSSMParams,
+                                             observations, forward_msg=None
+                                             ) -> LGSSMParams:
+    """The exact score per chain by autograd through the associative-scan
+    filter, as float64 LGSSMParams; equal, up to rounding, to
+    :func:`gradient_marginal_loglikelihood`."""
+    params, observations, forward_msg = _f64(params, observations,
+                                             forward_msg)
+    leaves = [x.detach().clone().requires_grad_()
+              for x in (params.A, params.C, params.LQinv_vec,
+                        params.LRinv_vec)]
+    with torch.enable_grad():
+        ll = parallel_marginal_loglikelihood(LGSSMParams(*leaves),
+                                             observations, forward_msg)
+        grads = torch.autograd.grad(ll.sum(), leaves)
+    return LGSSMParams(*grads)
 
 
 def predictive_loglikelihood(params: LGSSMParams, observations, lag: int = 1,

@@ -1,8 +1,7 @@
 """Uniform model adapter (counterpart of ``sgmcmc_tpu/models/registry.py``,
 with the fields the particle and exact-message scores, the steppers,
 Gibbs and the predict surface read, and the SVM, LGSSM (any n, m), GARCH,
-SVJM, GaussHMM and ARPHMM entries; the SLDS is ROADMAP.md, Queue 1, slice
-13)."""
+SVJM, GaussHMM, ARPHMM and SLDS entries)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,6 +14,7 @@ from . import arphmm as arphmm_mod
 from . import garch as garch_mod
 from . import gauss_hmm as gauss_hmm_mod
 from . import lgssm as lgssm_mod
+from . import slds as slds_mod
 from . import svjm as svjm_mod
 from . import svm as svm_mod
 
@@ -191,10 +191,32 @@ def _arphmm_api(num_states: int = 2, m: int = 1, p: int = 1) -> ModelAPI:
                                       m, m * p))
 
 
+@functools.lru_cache(maxsize=None)
+def _slds_api(num_states: int = 2, n: int = 1, m: int = 1) -> ModelAPI:
+    """The SLDS: blocked Gibbs and the complete-data score only (no
+    marginal-likelihood gradient, no particle filter), float64.  Its
+    ``windowed_complete_gradient`` takes the latent draws (params, window,
+    x, z, step_weights), its ``gibbs_step`` carries and returns them, and
+    ``generate_data`` returns (y, x, z), as in the JAX package."""
+    return ModelAPI(
+        name=f"slds_{num_states}_{n}_{m}", get_kernel=_no_particle_filter,
+        grad_statistic=None, grad_statistic_dim=0, unpack_grad=None,
+        default_prior=functools.partial(slds_mod.default_prior, num_states,
+                                        n, m),
+        logprior=slds_mod.logprior, grad_logprior=slds_mod.grad_logprior,
+        sample_prior=slds_mod.sample_prior,
+        project_parameters=slds_mod.project_parameters,
+        generate_data=slds_mod.generate_data,
+        prior_mean_var=lambda p: (0.0, 1.0),
+        windowed_complete_gradient=slds_mod.windowed_complete_gradient,
+        gibbs_step=slds_mod.gibbs_step, has_pf=False, dtype=slds_mod.DTYPE)
+
+
 def get_model(name: str, **kwargs) -> ModelAPI:
     """The model adapter ``name``; the LGSSM takes ``n`` and ``m`` (the
     scalar entry ``LGSSM`` without them, or at n = m = 1), the GaussHMM
-    ``num_states`` and ``m``, the ARPHMM also ``p``."""
+    ``num_states`` and ``m``, the ARPHMM also ``p``, the SLDS
+    ``num_states``, ``n`` and ``m``."""
     if name in _MODELS and not kwargs:
         return _MODELS[name]
     if name == "lgssm" and set(kwargs) <= {"n", "m"}:
@@ -205,9 +227,7 @@ def get_model(name: str, **kwargs) -> ModelAPI:
     if name == "arphmm" and set(kwargs) <= {"num_states", "m", "p"}:
         return _arphmm_api(int(kwargs.get("num_states", 2)),
                            int(kwargs.get("m", 1)), int(kwargs.get("p", 1)))
-    if name == "slds":
-        raise NotImplementedError("model 'slds' is not ported yet "
-                                  "(ROADMAP.md, Queue 1, slice 13: the "
-                                  "SLDS)")
-    raise NotImplementedError(f"model '{name}' with {kwargs} is not ported "
-                              "yet")
+    if name == "slds" and set(kwargs) <= {"num_states", "n", "m"}:
+        return _slds_api(int(kwargs.get("num_states", 2)),
+                         int(kwargs.get("n", 1)), int(kwargs.get("m", 1)))
+    raise ValueError(f"Unknown model '{name}' (with options {kwargs})")

@@ -10,9 +10,9 @@ Every function takes the emission log-likelihoods ``logP [..., T, K]``
 and the transition matrices ``Pi [..., K, K]``; the leading axes (chains,
 window rows, draws) broadcast, as do those of the messages ``prob [...,
 K]`` / ``log_constant [...]`` and of ``weights`` / ``valid [..., T]``.
-The JAX package's ``lax.scan`` is a Python loop over T.  The
-associative-scan functions (``parallel_forward_messages``,
-``parallel_marginal_loglikelihood``) are ROADMAP.md, Queue 1, slice 12b.
+The JAX package's ``lax.scan`` is a Python loop over T;
+``parallel_forward_messages`` and ``parallel_marginal_loglikelihood``
+take ceil(log2 T) rounds of an associative scan (``ops/scan.py``) instead.
 
 Random draws are inputs where a test holds them against the JAX package:
 FFBS takes one uniform a row and draws by the inverse CDF (equal in law to
@@ -25,6 +25,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from .scan import associative_scan
 
 
 class HMMMessage(NamedTuple):
@@ -80,6 +82,22 @@ def _finish(init: HMMMessage, probs: list, log_cs: list, reverse: bool):
     return HMMMessage(probs, init.log_constant[..., None] + acc)
 
 
+def _update(p, prob, m_t, v_t, w_t, log_cs: list, all_valid: bool):
+    """One step of the message loops: the step's log-constant (times
+    ``w_t`` unless it is None) appended to ``log_cs``, the new normalised
+    message returned (the old one where ``v_t`` is 0).  With every step
+    valid the gate's products with 1 and 0 are left out: the same numbers
+    in fewer operations."""
+    s = p.sum(-1)
+    log_c = m_t + torch.log(s)
+    if all_valid:
+        log_cs.append(log_c if w_t is None else w_t * log_c)
+        return p / s[..., None]
+    log_cs.append(v_t * (1.0 if w_t is None else w_t) * log_c)
+    v_t = v_t[..., None] if v_t.dim() else v_t
+    return v_t * (p / s[..., None]) + (1.0 - v_t) * prob
+
+
 def forward_messages(logP, Pi, init: HMMMessage, weights=None,
                      valid=None) -> HMMMessage:
     """All filtered messages, [..., T+1, K] (element 0 the initial one).
@@ -89,12 +107,10 @@ def forward_messages(logP, Pi, init: HMMMessage, weights=None,
     prob = init.prob
     probs, log_cs = [], []
     for t in range(T):
-        vt = _at(v, t)
         p = (prob[..., None, :] @ Pi)[..., 0, :] * P[..., t, :]
-        s = p.sum(-1)
-        log_cs.append(vt * _at(w, t) * (m[..., t] + torch.log(s)))
-        vt = vt[..., None] if vt.dim() else vt
-        prob = vt * (p / s[..., None]) + (1.0 - vt) * prob
+        prob = _update(p, prob, m[..., t], _at(v, t),
+                       None if weights is None else _at(w, t), log_cs,
+                       valid is None)
         probs.append(prob)
     return _finish(init, probs, log_cs, reverse=False)
 
@@ -108,12 +124,10 @@ def backward_messages(logP, Pi, init: HMMMessage, weights=None,
     prob = init.prob
     probs, log_cs = [], []
     for t in range(T - 1, -1, -1):
-        vt = _at(v, t)
         p = (Pi @ (P[..., t, :] * prob)[..., None])[..., 0]
-        s = p.sum(-1)
-        log_cs.append(vt * _at(w, t) * (m[..., t] + torch.log(s)))
-        vt = vt[..., None] if vt.dim() else vt
-        prob = vt * (p / s[..., None]) + (1.0 - vt) * prob
+        prob = _update(p, prob, m[..., t], _at(v, t),
+                       None if weights is None else _at(w, t), log_cs,
+                       valid is None)
         probs.append(prob)
     return _finish(init, probs, log_cs, reverse=True)
 
@@ -124,6 +138,47 @@ def last_message(msg: HMMMessage) -> HMMMessage:
 
 def first_message(msg: HMMMessage) -> HMMMessage:
     return HMMMessage(msg.prob[..., 0, :], msg.log_constant[..., 0])
+
+
+def parallel_forward_messages(logP, Pi, init: HMMMessage) -> HMMMessage:
+    """The filtered messages of :func:`forward_messages` (unweighted, every
+    step valid) in O(log T) depth: the recursion p_t ∝ (p_{t-1} Pi) ⊙ P_t
+    is a product of the per-step matrices M_t = Pi ⊙ row(P_t), so an
+    associative scan over normalised (M, log_scale) pairs gives every
+    prefix product."""
+    m = logP.amax(-1)                                       # [..., T]
+    Pt = torch.exp(logP - m[..., None])                     # [..., T, K]
+    M = Pi[..., None, :, :] * Pt[..., :, None, :]           # [..., T, K, K]
+    s = M.sum((-2, -1))
+    Mn = M / s[..., None, None]
+    logc = m + torch.log(s)
+
+    def combine(a, b):
+        Ma, ca = a
+        Mb, cb = b
+        P = Ma @ Mb
+        sp = P.sum((-2, -1))
+        return P / sp[..., None, None], ca + cb + torch.log(sp)
+
+    Mpre, cpre = associative_scan(combine, (Mn, logc), logc.dim() - 1)
+    p_unnorm = (init.prob[..., None, None, :] @ Mpre)[..., 0, :]
+    norm = p_unnorm.sum(-1)
+    probs = torch.cat([init.prob[..., None, :].expand(p_unnorm[..., :1, :]
+                                                      .shape),
+                       p_unnorm / norm[..., None]], -2)
+    zero = torch.zeros_like(norm[..., :1])
+    log_constants = torch.cat([zero, cpre + torch.log(norm)], -1) \
+        + init.log_constant[..., None]
+    return HMMMessage(probs, log_constants)
+
+
+def parallel_marginal_loglikelihood(logP, Pi, forward_msg: HMMMessage,
+                                    backward_msg: HMMMessage) -> torch.Tensor:
+    """log p(y) [...] from :func:`parallel_forward_messages` (unweighted;
+    the buffered and weighted estimators keep the sequential loop)."""
+    last = last_message(parallel_forward_messages(logP, Pi, forward_msg))
+    lik = (last.prob * backward_msg.prob).sum(-1)
+    return last.log_constant + torch.log(lik) + backward_msg.log_constant
 
 
 def marginal_loglikelihood(logP, Pi, forward_msg: HMMMessage,
@@ -226,27 +281,27 @@ def latent_var_sample(logP, Pi, forward_msg, backward_msg, valid=None,
     q = bwd.prob[..., 1:, :]
     prior0 = (forward_msg.prob[..., None, :] @ Pi)[..., 0, :]
     K = Pi.shape[-1]
-    rows = torch.arange(K, device=logP.device)
     z_prev = torch.zeros(batch, dtype=torch.int64, device=logP.device)
     started = torch.zeros(batch, dtype=torch.bool, device=logP.device)
     zs = []
+    Pi_rows = Pi.expand(batch + (K, K))
     for t in range(T):
-        # Pi[z_prev]: the row of the previous draw
-        onehot = (z_prev[..., None] == rows).to(Pi.dtype)
-        prior = torch.where(started[..., None],
-                            (onehot[..., None, :] @ Pi)[..., 0, :], prior0)
+        # Pi[z_prev]: the row of the previous draw (the prior's at t=0)
+        prior = prior0 if t == 0 else torch.gather(
+            Pi_rows, -2, z_prev[..., None, None].expand(
+                batch + (1, K)))[..., 0, :]
         if valid is None:
             post = prior * P[..., t, :] * q[..., t, :]
             z = categorical_icdf(post, u[..., t])
         else:
+            # rows before the first valid one draw from the prior's
+            prior = torch.where(started[..., None], prior, prior0)
             vt = (valid[..., t] > 0).expand(batch)
             post = prior * torch.where(vt[..., None], P[..., t, :],
                                        torch.ones_like(P[..., t, :])) \
                 * q[..., t, :]
             z = torch.where(vt, categorical_icdf(post, u[..., t]), z_prev)
             started = started | vt
-        if valid is None:
-            started = torch.ones_like(started)
         zs.append(z)
         z_prev = z
     zs = torch.stack(zs, -1)

@@ -43,13 +43,12 @@ from sgmcmc_tpu_torch.inference import samplers
 from sgmcmc_tpu_torch.io import checkpoint as ckpt
 from sgmcmc_tpu_torch.io import tables
 from sgmcmc_tpu_torch.metrics import convergence
-from sgmcmc_tpu_torch.models import (arphmm, garch, gauss_hmm, lgssm, svjm,
-                                     svm)
+from sgmcmc_tpu_torch.models import (arphmm, garch, gauss_hmm, lgssm, slds,
+                                     svjm, svm)
 
 torch.set_num_threads(1)
 
-MODELS = ("svm", "svjm", "garch", "lgssm", "gauss_hmm", "arphmm")
-UNPORTED = ("slds",)
+MODELS = ("svm", "svjm", "garch", "lgssm", "gauss_hmm", "arphmm", "slds")
 # a small grid over the default one's names: 3 iterations of one step
 SMALL = dict(max_num_iters=3, steps_per_iteration=1, N=32,
              subsequence_length=10, buffer_length=2)
@@ -152,7 +151,7 @@ def jax_params(model, rng):
 PORT_CLASSES = dict(svm=svm.SVMParams, svjm=svjm.SVJMParams,
                     garch=garch.GARCHParams, lgssm=lgssm.LGSSMParams,
                     gauss_hmm=gauss_hmm.GaussHMMParams,
-                    arphmm=arphmm.ARPHMMParams)
+                    arphmm=arphmm.ARPHMMParams, slds=slds.SLDSParams)
 
 
 def to_port(model, p):
@@ -527,12 +526,40 @@ def test_lgssm_pipeline_and_kstest(tmp_path):
     assert "pvalue" in agg.columns and len(agg) > len(rows)
 
 
-@pytest.mark.parametrize("model", UNPORTED)
-def test_unported_models_raise_at_setup(tmp_path, model):
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        driver.main(["--setup", "--model", model, "--path",
-                     str(tmp_path), "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "in")
+def test_slds_driver_setup_fit_eval(tmp_path):
+    """The SLDS's grid at a tiny T: setup (the data carry z), GIBBS and
+    SGLD_COMPLETE for 2 iterations from both inits, eval (the noisy
+    log-joint rows; the SLDS has no predictive log-likelihood), and
+    --num_chains 2 raising for both (Gibbs is no gradient iter type; the
+    SLDS sampler has no fit_scan)."""
+    args = args_for(tmp_path, "slds")
+    grid = [dict(o, max_num_iters=2, steps_per_iteration=1,
+                 subsequence_length=8, buffer_length=2)
+            if o["name"] == "SGLD_COMPLETE" else dict(o, max_num_iters=2)
+            for o in driver.default_sampler_grid("slds")]
+    opts = driver.do_setup(args, grid)
+    assert sorted({o["name"] for o in opts}) == ["GIBBS", "SGLD_COMPLETE"]
+    data = ckpt.load_pickle(str(tmp_path / "in" / "data.p"))
+    assert data["latent_z"].shape == (args.T,)
+    assert data["test_latent_z"].shape == (args.T_test,)
+    assert data["latent_vars"].shape == (args.T, 1)
+    for o in opts:
+        smp = driver.do_fit(args, o)
+        assert isinstance(smp, samplers.SLDSSampler)
+        assert all(bool(torch.isfinite(getattr(smp.parameters, f)).all())
+                   for f in ("logit_pi", "A", "LQinv_vec", "LRinv_vec"))
+    o = next(o for o in opts if o["name"] == "SGLD_COMPLETE")
+    args.num_to_eval = 2
+    driver.do_eval(args, o, "half_avg_test")
+    rows = tables.read_csv(str(tmp_path / "out" / "eval" / (
+        f"{o['experiment_id']}_half_avg_test_metrics.csv"))).rows
+    metrics = {r["metric"] for r in rows}
+    assert {"logjoint", "loglikelihood", "A_logmse"} <= metrics
+    assert not any("pred_loglikelihood" in m for m in metrics)
+    args.num_chains = 2
+    for o in opts:
+        with pytest.raises(ValueError, match="Gibbs|fit_scan"):
+            driver.do_fit(args, o)
     # the SCIR step the HMM grid runs: the projection inside the step
     assert driver._iter_funcs("SCIR", dict(epsilon=0.2), dict(
         subsequence_length=16)) == jd._iter_funcs(

@@ -426,8 +426,10 @@ def test_registry_and_samplers_take_the_vector_model():
     assert hmm.model is registry.get_model("gauss_hmm", num_states=3)
     assert hmm.parameters.mu.shape == (1, 3, 1)
     assert hmm.parameters.mu.dtype == hmm.observations.dtype == torch.float64
-    with pytest.raises(NotImplementedError, match="slice 13"):
-        samplers.sampler_for_model("slds")
+    sl = sgmcmc_tpu_torch.sampler_for_model(
+        "slds", observations=ys[:, :1], device="cpu")
+    assert isinstance(sl, samplers.SLDSSampler)
+    assert sl.model is registry.get_model("slds")
     with pytest.raises(ValueError, match="Unknown model"):
         samplers.sampler_for_model("nope")
 
