@@ -245,6 +245,23 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      SGLD from the truth at T=200: A_k and LQinv_k shifts below 0.5 sd,
      sd ratios in 0.5-1.6); the driver's SLDS grid (setup at T=1000,
      GIBBS and SGLD_COMPLETE, eval, --num_chains 2 raising).
+ 28. the parallel layer (``sgmcmc_tpu_torch/parallel/``): (a)
+     ``fit_scan(mesh=make_mesh(1, 1))`` through NCCL at world size 1 at the
+     main path's width (SVM, N=1024, S=40, B=10, T=1000, 8192 chains,
+     systematic, ``rng="kernel"``, 20 iterations, ``record="none"``): 20
+     K1 launches and final parameters bitwise equal to
+     ``fit_scan(num_chains=8192)`` from the same generator state, steps/s
+     and the device's idle share of both; then two ranks spawned on the
+     one card over gloo: (b) the island route (``island_fused=True``, K1
+     at N=512 a rank, 8192 chains each): K1 launches per rank, the ranks'
+     parameters equal, each rank's K1 bitwise equal to its plain version,
+     the all-reduced island score bitwise equal to the mean of the two
+     islands rerun in this process, K1 timed at the island shape; (c) the
+     sharded smoother (systematic ``poyiadjis_N``, P=2, C=64, N=1024)
+     against the unsharded smoother on the same draws (rtol = atol =
+     1e-4) and the LGSSM's sharded score against the Kalman gradient (|z|
+     < 5); (d) a 2 x 1 chain mesh, 4096 chains a rank on K1: the gathered
+     trace of 8192 chains on both ranks, finite.
 The last three lines are the kernel report (JSON), the card's
 ``nvidia-smi`` name and power limit, and the result (JSON).
 Exits non-zero without a result when no CUDA device is available.
@@ -2515,6 +2532,435 @@ def parallel_slds_phase(dev, card, psizes=PARALLEL_SIZES, sizes=SLDS_SIZES):
                 anchor=(shift, ratio))
 
 
+# Phase 28: the parallel layer (sgmcmc_tpu_torch/parallel/) on the one card.
+# (a) a 1 x 1 mesh through NCCL (world size 1) at the main path's width;
+# (b)-(d) two ranks spawned on the same card over gloo (NCCL refuses two
+# ranks on one device): the island route (K1 at N / 2 particles a rank),
+# the sharded smoother (C=64, N=1024, and the LGSSM's Kalman gradient over
+# the oracle's chains) and a 2 x 1 chain mesh on K1.
+# C, N, iterations of (a) and (b); shard: (chains, N) against the unsharded
+# smoother; oracle: (chains, T) of the Kalman check; chain: (chains,
+# iterations) of (d); the collectives' timeout in seconds
+MESH_SIZES = dict(C=C_BENCH, N=N, iters=ITERS, shard=(64, N),
+                  oracle=(1024, 16), chain=(C_BENCH, 5), timeout=300)
+# the sharded smoother against the unsharded one on the same float32 draws
+# (the two sum in different orders)
+SHARD_RTOL = SHARD_ATOL = 1e-4
+
+
+def idle_share(fn, tmp):
+    """(idle share, busy ms, span ms) of one call of fn under
+    torch.profiler: the device's busy time is the union of its kernel,
+    memcpy and memset intervals inside the call's annotation; None when
+    the trace holds no device activity."""
+    import os
+    from torch.profiler import ProfilerActivity, profile, record_function
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("run"):
+            fn()
+    path = os.path.join(tmp, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    span = [e for e in events if e.get("cat") == "user_annotation"
+            and e.get("name") == "run"]
+    dev_ev = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    if len(span) != 1 or not dev_ev:
+        return None
+    lo = float(span[0]["ts"])
+    hi = lo + float(span[0]["dur"])
+    busy, cur = 0.0, None
+    for s, e in sorted((max(float(e["ts"]), lo),
+                        min(float(e["ts"]) + float(e["dur"]), hi))
+                       for e in dev_ev):
+        if e <= s:
+            continue
+        if cur is None or s > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    busy += 0.0 if cur is None else cur[1] - cur[0]
+    return 1.0 - busy / (hi - lo), busy / 1e3, (hi - lo) / 1e3
+
+
+def _svm_rows(gen, C, dev):
+    """Random SVM parameters of C chains (window_inputs' ranges)."""
+    from sgmcmc_tpu_torch.models import svm
+    u = torch.rand((C, 3), generator=gen, device=dev)
+    return svm.SVMParams(A=(0.5 + 0.45 * u[:, 0]).reshape(C, 1, 1),
+                         LQinv_vec=(0.3 + 1.2 * u[:, 1:2]) ** -0.5,
+                         LRinv_vec=(0.5 + 1.5 * u[:, 2:3]) ** -0.5)
+
+
+def _mesh_rank(rank, tmp, sizes, device_type):
+    """One of phase 28's two ranks on the card (spawned): (b) the island
+    route, (c) the sharded smoother, (d) the 2 x 1 chain mesh; its results
+    go to ``tmp/rank_<rank>.pt``."""
+    import os
+    from sgmcmc_tpu_torch.inference import sgmcmc
+    from sgmcmc_tpu_torch.inference.samplers import SVMSampler
+    from sgmcmc_tpu_torch.models import lgssm, registry, svm
+    from sgmcmc_tpu_torch.models.base import params_map
+    from sgmcmc_tpu_torch.ops import buffered, subsequence
+    from sgmcmc_tpu_torch.ops.cuda import fused_pf, philox, resample
+    from sgmcmc_tpu_torch.parallel import pf_shard, sharding, training
+    dev = torch.device(device_type)
+    sharding.initialize_multi_host(f"file://{tmp}/init_bcd", 2, rank,
+                                   backend="gloo", timeout=sizes["timeout"])
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    out = {"device": str(dev) if not cuda else
+           f"cuda:{torch.cuda.current_device()}"}
+    C, n, iters = sizes["C"], sizes["N"], sizes["iters"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ys, _ = svm.generate_data(gen, svm.from_scalars(0.9, 0.5, 1.0,
+                                                    device=dev), T)
+    kw = dict(N=n, subsequence_length=S, buffer_length=B, pf="poyiadjis_N",
+              resampler="systematic", rng="kernel")
+    mesh12 = sharding.make_mesh(1, 2)
+    group = sharding.axis_group(mesh12, "particle")
+    real = fused_pf.fused_window
+    caught = []
+
+    def spy(model, *a, **k):
+        if not caught:
+            caught.append((a, k))
+        return real(model, *a, **k)
+
+    # (b) the island route through fit_scan: K1 at n / 2 particles a rank;
+    # the warm-up fit catches K1's first inputs, the timed one counts
+    for timed in (False, True):
+        s = SVMSampler(observations=ys, device=dev, seed=2)
+        s.parameters = svm.from_scalars(0.5, 1.0, 2.0)
+        if not timed:
+            fused_pf.fused_window = spy
+        reset_counts(fused_pf, resample, philox)
+        sync()
+        t0 = time.perf_counter()
+        try:
+            _, aux = s.fit_scan("SGLD", num_iters=iters, epsilon=0.1,
+                                num_chains=C, record="none", return_aux=True,
+                                mesh=mesh12, island_fused=True, **kw)
+            float(aux[:, -1].sum())               # synchronises
+        finally:
+            fused_pf.fused_window = real
+        dt = time.perf_counter() - t0
+    out["b_launches"] = (fused_pf.fused_window.launches,
+                         resample.resample_apply.launches,
+                         philox.philox_normals.launches)
+    out["b_seconds"] = dt
+    out["b_params"] = [getattr(s.parameters, f).cpu()
+                       for f in ("A", "LQinv_vec", "LRinv_vec")]
+    out["b_finite"] = bool(torch.isfinite(aux).all())
+    (a, k), = caught
+    out_k = real(svm.FUSED, *a, **k)
+    out_r = fused_pf.fused_window_reference(svm.FUSED, *a, **k)
+    out["b_k1_equal"] = bool(torch.equal(out_k, out_r))
+    out["b_k1_err"] = float((out_k - out_r).abs().nan_to_num(
+        float("inf")).max())
+    del out_k, out_r, caught[:]
+    # one island score with its K1 inputs: the all-reduced rows that the
+    # parent holds against the two islands it reruns
+    cfg = sgmcmc.PFScoreConfig(n_particles=n // 2, subsequence_length=S,
+                               buffer_length=B, resampler="systematic",
+                               resample_mode="auto", rng="kernel")
+    score = sgmcmc.PFScore(svm.KERNEL, svm.grad_statistic, svm.STATISTIC_DIM,
+                           svm.unpack_grad, cfg, T, registry.SVM.prior_mean_var,
+                           svm.FUSED)
+    score.fused_on_cpu = True
+    params = params_map(lambda x: x.expand((C,) + x.shape[1:]).contiguous(),
+                        svm.from_scalars(0.7, 0.8, 1.2, device=dev))
+    fused_pf.fused_window = spy
+    try:
+        stat, ll = training.island_row_scores(
+            score, torch.Generator(device=dev).manual_seed(1),
+            torch.Generator(device=dev).manual_seed(20 + rank), params, ys,
+            group)
+    finally:
+        fused_pf.fused_window = real
+    (a, k), = caught
+    torch.save(dict(args=[x.cpu() if isinstance(x, torch.Tensor) else x
+                          for x in a], kw=k, stat=stat.cpu(), ll=ll.cpu()),
+               os.path.join(tmp, f"island_{rank}.pt"))
+
+    # (c) the sharded smoother against the unsharded one on the same draws
+    Cs, Ns = sizes["shard"]
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = _svm_rows(g, Cs, dev)
+    cfg_s = sgmcmc.PFScoreConfig(n_particles=Ns, subsequence_length=S,
+                                 buffer_length=B, resampler="systematic",
+                                 resample_mode="auto")
+    score_s = sgmcmc.PFScore(svm.KERNEL, svm.grad_statistic,
+                             svm.STATISTIC_DIM, svm.unpack_grad, cfg_s, T,
+                             registry.SVM.prior_mean_var, svm.FUSED)
+    start = subsequence.sample_start(g, S, T, Cs, device=dev)
+    z0 = torch.randn((Cs, 1, Ns), generator=g, device=dev)
+    normals = torch.randn((Cs, W, 1, Ns), generator=g, device=dev)
+    u = torch.rand((Cs, W), generator=g, device=dev)
+    draws = sgmcmc.WindowDraws(start, z0, normals, u)
+    prow, window, step_w, in_win, _, pm, pv = score_s.inputs(rows, ys, draws)
+    half = Ns // 2
+    sl = slice(rank * half, (rank + 1) * half)
+    reset_counts(fused_pf, resample, philox)
+    sync()
+    t0 = time.perf_counter()
+    stat_s, ll_s = pf_shard.run_buffered_pf_sharded(
+        svm.KERNEL, svm.grad_statistic, prow, window, z0=z0[..., sl],
+        normals=normals[..., sl], u=u, statistic_dim=svm.STATISTIC_DIM,
+        group=group, smoother="poyiadjis_N", step_weights=step_w,
+        in_window=in_win, prior_mean=pm, prior_var=pv,
+        resampler="systematic")
+    sync()
+    out["c_seconds"] = time.perf_counter() - t0
+    out["c_launches"] = (fused_pf.fused_window.launches,
+                         resample.resample_apply.launches)
+    ref = buffered.run_buffered_pf(
+        svm.KERNEL, svm.grad_statistic, prow, window, z0=z0, normals=normals,
+        u=u, statistic_dim=svm.STATISTIC_DIM, smoother="poyiadjis_N",
+        step_weights=step_w, in_window=in_win, prior_mean=pm, prior_var=pv,
+        resampler="systematic")
+    out["c_stat"], out["c_ll"] = stat_s.cpu(), ll_s.cpu()
+    out["c_ref_stat"] = ref.mean_statistic.cpu()
+    out["c_ref_ll"] = ref.loglikelihood.cpu()
+    # the LGSSM's Kalman gradient: the sharded score over the oracle's
+    # chains, full window, systematic
+    C_or, T_or = sizes["oracle"]
+    go = torch.Generator(device=dev).manual_seed(14)
+    truth = lgssm.from_scalars(0.8, 0.5, 1.0, device=dev)
+    ys_o, _ = lgssm.generate_data(go, truth, T_or)
+    exact = lgssm.gradient_marginal_loglikelihood(truth, ys_o)
+    exact_vec = torch.stack([exact.LRinv_vec[0, 0], exact.LQinv_vec[0, 0],
+                             exact.C[0, 0, 0], exact.A[0, 0, 0]]).double()
+    rows_o = params_map(lambda x: x.expand((C_or,) + x.shape[1:])
+                        .contiguous(), truth)
+    cfg_o = sgmcmc.PFScoreConfig(n_particles=Ns, resampler="systematic",
+                                 resample_mode="auto")
+    score_o = sgmcmc.PFScore(lgssm.OPTIMAL_KERNEL, lgssm.grad_statistic, 4,
+                             lgssm.unpack_grad, cfg_o, T_or,
+                             registry.LGSSM.prior_mean_var, lgssm.FUSED)
+    f, _ = training.sharded_row_scores(
+        score_o, torch.Generator(device=dev).manual_seed(5),
+        torch.Generator(device=dev).manual_seed(50 + rank), rows_o, ys_o,
+        group)
+    f = f.double()
+    out["c_z"] = ((f.mean(0) - exact_vec)
+                  / (f.std(0) / C_or ** 0.5 + 1e-9)).cpu()
+
+    # (d) a 2 x 1 chain mesh on K1: rank c fits chains [c C/2, (c+1) C/2)
+    Cd, it_d = sizes["chain"]
+    mesh21 = sharding.make_mesh(2, 1)
+    s = SVMSampler(observations=ys, device=dev, seed=4)
+    s.parameters = svm.from_scalars(0.5, 1.0, 2.0)
+    reset_counts(fused_pf, resample, philox)
+    trace = s.fit_scan("SGLD", num_iters=it_d, epsilon=0.1, num_chains=Cd,
+                       mesh=mesh21, record="all", **kw)
+    out["d_launches"] = (fused_pf.fused_window.launches,
+                         resample.resample_apply.launches)
+    out["d_A"] = trace.A.cpu()
+    out["d_held"] = s.parameters.A.cpu()
+    torch.save(out, os.path.join(tmp, f"rank_{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def mesh_phase(dev, card, sizes=MESH_SIZES):
+    """Phase 28 on ``dev`` (the CPU for a rehearsal at small sizes): the
+    parallel layer.  Returns the K1 numbers for the kernel report."""
+    import os
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from sgmcmc_tpu_torch.inference.samplers import SVMSampler
+    from sgmcmc_tpu_torch.models import svm
+    from sgmcmc_tpu_torch.ops.cuda import fused_pf, philox, resample
+    from sgmcmc_tpu_torch.parallel import sharding
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    C, n, iters = sizes["C"], sizes["N"], sizes["iters"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ys, _ = svm.generate_data(gen, svm.from_scalars(0.9, 0.5, 1.0,
+                                                    device=dev), T)
+    kw = dict(N=n, subsequence_length=S, buffer_length=B, pf="poyiadjis_N",
+              resampler="systematic", rng="kernel")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # (a) a 1 x 1 mesh, world size 1 (NCCL on the card), against
+    # fit_scan(num_chains=C) from the same generator state
+    sharding.initialize_multi_host(f"file://{tmp}/init_a", 1, 0,
+                                   timeout=sizes["timeout"])
+    backend = dist.get_backend()
+    mesh = sharding.make_mesh(1, 1)
+    routes = {"fit_scan": {}, "mesh": {"mesh": mesh}}
+
+    def fit(label):
+        s = SVMSampler(observations=ys, device=dev, seed=2)
+        s.parameters = svm.from_scalars(0.5, 1.0, 2.0)
+        reset_counts(fused_pf, resample, philox)
+        _, aux = s.fit_scan("SGLD", num_iters=iters, epsilon=0.1,
+                            num_chains=C, record="none", return_aux=True,
+                            **kw, **routes[label])
+        float(aux[:, -1].sum())                   # synchronises
+        return s.parameters, (fused_pf.fused_window.launches,
+                              resample.resample_apply.launches,
+                              philox.philox_normals.launches)
+
+    fit("fit_scan")
+    fit("mesh")
+    rates, held, launches = {"fit_scan": [], "mesh": []}, {}, {}
+    for label in ("fit_scan", "mesh", "mesh", "fit_scan"):
+        sync()
+        t0 = time.perf_counter()
+        held[label], launches[label] = fit(label)
+        rates[label].append(C * iters / (time.perf_counter() - t0))
+    fields = ("A", "LQinv_vec", "LRinv_vec")
+    same = all(torch.equal(getattr(held["fit_scan"], f),
+                           getattr(held["mesh"], f)) for f in fields)
+    check_finite("the 1 x 1 mesh fit's parameters",
+                 *[getattr(held["mesh"], f) for f in fields])
+    idle = {label: idle_share(lambda: fit(label), tmp) if cuda else None
+            for label in routes}
+
+    def idle_text(label):
+        if idle[label] is None:
+            return "idle share not measured"
+        share, busy, span = idle[label]
+        return f"idle share {share:.4f} ({busy:.3f} of {span:.3f} ms busy)"
+    phase("28 mesh 1x1", f"fit_scan(mesh=make_mesh(1, 1)) over {backend} "
+          f"(world size 1) SGLD systematic rng='kernel' C={C} N={n} S={S} "
+          f"B={B} T={T}, {iters} iterations: final parameters bitwise equal "
+          f"to fit_scan(num_chains={C}) from the same generator state: "
+          f"{same}; (K1, resample-apply, Philox) launches "
+          f"{launches['mesh']} (fit_scan: {launches['fit_scan']}); "
+          + "; ".join(f"{label} " + " / ".join(f"{r:.1f}" for r in
+                                               rates[label])
+                      + f" aggregate steps/s, {idle_text(label)}"
+                      for label in routes) + f" ({card})")
+    if not same:
+        raise AssertionError("the 1 x 1 mesh fit differs from fit_scan")
+    if cuda and launches["mesh"] != (iters, 0, iters):
+        raise AssertionError(f"1 x 1 mesh launches {launches['mesh']}")
+    dist.destroy_process_group()
+
+    # (b)-(d) two ranks on this one card
+    phase("28 ranks", f"two ranks spawned on the one {dev.type} device "
+          f"({card}), over gloo (NCCL refuses two ranks on one device), "
+          f"which stages CUDA tensors through the host: these ranks share "
+          f"one GPU, so their times are not a multi-GPU speed; NCCL "
+          f"between cards is not measured (one H100)")
+    t0 = time.perf_counter()
+    mp.spawn(_mesh_rank, args=(tmp, sizes, dev.type), nprocs=2, join=True)
+    spawn_s = time.perf_counter() - t0
+    res = [torch.load(os.path.join(tmp, f"rank_{r}.pt")) for r in range(2)]
+    isl = [torch.load(os.path.join(tmp, f"island_{r}.pt")) for r in range(2)]
+
+    # (b) the island route
+    same_b = all(torch.equal(x, y) for x, y in zip(res[0]["b_params"],
+                                                   res[1]["b_params"]))
+    b_err = max(r["b_k1_err"] for r in res)
+    k1_equal = all(r["b_k1_equal"] for r in res)
+    outs, isl_args = [], []
+    for r in isl:
+        args = [x.to(dev) if isinstance(x, torch.Tensor) else x
+                for x in r["args"]]
+        isl_args.append((args, r["kw"]))
+        outs.append(fused_pf.fused_window(svm.FUSED, *args, **r["kw"]))
+    mean = (outs[0] + outs[1]) / 2
+    H = svm.FUSED.n_stat
+    mean_equal = all(torch.equal(r["stat"].to(dev), mean[:, :H])
+                     and torch.equal(r["ll"].to(dev), mean[:, H])
+                     for r in isl)
+    args, k = isl_args[0]
+    Ci, ni = args[1].shape[0], args[1].shape[-1]
+    if cuda:
+        isl_ms = cuda_ms(lambda: fused_pf.fused_window(svm.FUSED, *args,
+                                                       **k), 5)
+        isl_plain = cuda_ms(lambda: fused_pf.fused_window_reference(
+            svm.FUSED, *args, **k), 2)
+    else:
+        isl_ms = isl_plain = float("nan")
+    nbytes = sum(4 * a.numel() if a.dtype == torch.float32 else
+                 8 * a.numel() for a in args if isinstance(a, torch.Tensor)) \
+        + 4 * Ci * (H + 1)
+    isl_bound, isl_by = bound_ms(nbytes, k1_ops(Ci, "svm", rng=True) * ni // N)
+    lb = [r["b_launches"] for r in res]
+    phase("28 island", f"fit_scan(mesh=make_mesh(1, 2), island_fused=True) "
+          f"C={C} N={n} ({n // 2} a rank) rng='kernel', {iters} iterations: "
+          f"(K1, resample-apply, Philox) launches per rank {lb[0]} and "
+          f"{lb[1]}, {res[0]['b_seconds']:.3f} / {res[1]['b_seconds']:.3f} s "
+          f"({C * iters / max(r['b_seconds'] for r in res):.1f} aggregate "
+          f"steps/s, two ranks sharing one card); the ranks' parameters "
+          f"equal: {same_b}; each rank's K1 bitwise equal to its plain "
+          f"version: {k1_equal} (max |kernel - plain| {b_err:.3e}); the "
+          f"all-reduced island score equal to the mean of the two islands "
+          f"rerun in one process: {mean_equal}; K1 at the island shape "
+          f"C={Ci} N={ni} W={W}: kernel {isl_ms:.3f} ms, plain "
+          f"{isl_plain:.3f} ms, bound {isl_bound:.3f} ms by {isl_by} "
+          f"({card})")
+    if not (same_b and k1_equal and mean_equal
+            and all(r["b_finite"] for r in res)):
+        raise AssertionError("the island route fails its checks")
+    if cuda and any(x != (iters, 0, iters) for x in lb):
+        raise AssertionError(f"island launches {lb}")
+
+    # (c) the sharded smoother
+    d_stat = max(float((r["c_stat"] - res[0]["c_ref_stat"]).abs().max())
+                 for r in res)
+    d_ll = max(float((r["c_ll"] - res[0]["c_ref_ll"]).abs().max())
+               for r in res)
+    close = all(torch.allclose(r["c_stat"], res[0]["c_ref_stat"],
+                               rtol=SHARD_RTOL, atol=SHARD_ATOL)
+                and torch.allclose(r["c_ll"], res[0]["c_ref_ll"],
+                                   rtol=SHARD_RTOL, atol=SHARD_ATOL)
+                for r in res)
+    z = res[0]["c_z"]
+    Cs, Ns = sizes["shard"]
+    phase("28 sharded", f"run_buffered_pf_sharded systematic poyiadjis_N "
+          f"P=2, C={Cs} N={Ns} W={W} (SVM): max |sharded - unsharded| "
+          f"statistic {d_stat:.3e}, loglik {d_ll:.3e} (bound rtol = atol = "
+          f"{SHARD_RTOL}), {res[0]['c_seconds']:.3f} s a call with (K1, "
+          f"resample-apply) launches {res[0]['c_launches']}; the LGSSM's "
+          f"sharded score over {sizes['oracle'][0]} chains (T="
+          f"{sizes['oracle'][1]}, N={Ns}) against the Kalman gradient: z = "
+          f"{[round(float(x), 2) for x in z]} ({card})")
+    if not close:
+        raise AssertionError("the sharded smoother is off the unsharded one")
+    if not bool((z.abs() < 5).all()):
+        raise AssertionError(f"sharded Kalman z-scores {z.tolist()}")
+
+    # (d) the chain mesh
+    Cd, it_d = sizes["chain"]
+    dA = res[0]["d_A"]
+    same_d = all(torch.equal(r["d_A"], dA) for r in res) and all(
+        torch.equal(r["d_held"], dA[:, -1]) for r in res)
+    ld = [r["d_launches"] for r in res]
+    phase("28 chain mesh", f"fit_scan(mesh=make_mesh(2, 1)) {Cd // 2} "
+          f"chains a rank, N={n}, {it_d} iterations: gathered trace "
+          f"{tuple(dA.shape)} on both ranks, equal: {same_d}, finite: "
+          f"{bool(torch.isfinite(dA).all())}; (K1, resample-apply) launches "
+          f"per rank {ld[0]} and {ld[1]}; two ranks spawned and joined in "
+          f"{spawn_s:.1f} s ({card})")
+    if not (same_d and tuple(dA.shape[:2]) == (Cd, it_d)
+            and bool(torch.isfinite(dA).all())):
+        raise AssertionError("the chain mesh's gathered trace fails")
+    if cuda and any(x != (it_d, 0) for x in ld):
+        raise AssertionError(f"chain mesh launches {ld}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    phase("28 seconds", f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(mesh_launches=launches["mesh"][0], island_launches=lb[0][0],
+                island=dict(max_abs_err=b_err, ms=isl_ms, plain_ms=isl_plain,
+                            bound_ms=isl_bound, bound_by=isl_by))
+
+
 def paris_phase(dev, card, sizes=PARIS_SIZES):
     """Phase 20 on ``dev`` (the CPU for a rehearsal at small ``sizes``):
     PaRIS through the public samplers, resample-apply at its shapes, the
@@ -3278,11 +3724,15 @@ def main():
         seeds_main, 1, 1, N, stream=philox.STREAM_INIT), 5)
     ph_bytes = 8 * C_BENCH + 4 * C_BENCH * N
     ph_bound, ph_by = bound_ms(ph_bytes, C_BENCH * N // 2 * PHILOX_PAIR_OPS)
-    # a yardstick only: torch's own generator, other bits from other seeds
-    randn_ms = cuda_ms(lambda: torch.randn((C_BENCH, 1, N), device=dev), 50)
+    # the library call: torch's own Philox4x32-10 + Box-Muller normals,
+    # equal in law to the kernel's, another stream (another counter layout)
+    g_lib = torch.Generator(device=dev).manual_seed(0)
+    ph_lib = cuda_ms(lambda: torch.empty((C_BENCH, N), device=dev).normal_(
+        generator=g_lib), 50)
     phase("10 philox", f"{C_BENCH} x {N} normals: kernel {ph_ms:.4f} ms, "
           f"plain {ph_plain:.4f} ms, bound {ph_bound:.4f} ms by {ph_by}; "
-          f"torch.randn of the same shape {randn_ms:.4f} ms ({card})")
+          f"library torch.empty({C_BENCH}, {N}).normal_(generator=g) "
+          f"{ph_lib:.4f} ms (equal in law, another stream) ({card})")
 
     # 11. K1 with in-kernel normals
     def seeded(C):
@@ -3997,6 +4447,10 @@ def main():
     # own: associative scans, message loops, Gibbs, complete-data SGLD)
     parallel_slds_phase(dev, card)
 
+    # 28. the parallel layer: a 1 x 1 mesh (K1 as on the main path), the
+    # island route (K1 at N / 2 a rank), the sharded smoother, a chain mesh
+    mesh = mesh_phase(dev, card)
+
     main_shape = ra_times["K2b"]
     k1_tpu = "sgmcmc_tpu/ops/pallas/fused_pf.py:121"
 
@@ -4115,12 +4569,25 @@ def main():
         # K1 on the exchange-rate demo's SGLD leg (C=1, N=1000, W=24)
         k1_entry("svm_demo", "svm", " (the demo's SGLD leg, one segment)",
                  exps["launches"]["demo"], exps["k1"]),
+        # K1 on the parallel layer: the 1 x 1 mesh fit (phase 11's shape,
+        # its numbers) and the island route (C=8192, N=512 a rank)
+        k1_entry("svm_rng_kernel_mesh_1x1", "svm",
+                 " (rng='kernel'; fit_scan(mesh=make_mesh(1, 1)), "
+                 "sgmcmc_tpu/parallel/training.py:56)",
+                 mesh["mesh_launches"], dict(
+                     max_abs_err=rng_err, ms=rng_ms, plain_ms=rng_plain,
+                     bound_ms=rng_bound, bound_by=rng_by), "philox.cuh"),
+        k1_entry("svm_rng_kernel_island", "svm",
+                 " (rng='kernel'; island_fused, N/2 a rank, "
+                 "sgmcmc_tpu/parallel/training.py:101-124)",
+                 mesh["island_launches"], mesh["island"], "philox.cuh"),
         {"name": "philox_normals", "route": "cuda",
          "source": "sgmcmc_tpu_torch/csrc/philox_normals.cu",
          "replaces": "scripts/tpu_probe_kernel_rng.py:15",
          "launches": ph_launches, "max_abs_err": ph_err, "ms": ph_ms,
          "plain_ms": ph_plain, "bound_ms": ph_bound, "bound_by": ph_by,
-         "library_ms": None}]}))
+         # torch.Tensor.normal_: equal in law, another stream
+         "library_ms": ph_lib}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -110,19 +110,35 @@ def fit_model(model_name, observations, method, num_iters, N, seed=12345,
     """One leg's fit in ``fit_scan_chunked`` chunks of ``chunk_iters``
     iterations, from a projected prior draw (or ``init``).  Returns
     ``(sampler, parameters list, times)``; the sampler holds one chain.
-    ``seq=True`` fits a multi-sequence sampler over a list of segments."""
-    if n_particle_devices > 1:
-        raise NotImplementedError(
-            "--n_particle_devices > 1 (a particle filter sharded over "
-            "devices) is not ported yet (ROADMAP.md, Queue 1, slice 14: "
-            "parallel)")
+    ``seq=True`` fits a multi-sequence sampler over a list of segments.
+    ``n_particle_devices=P > 1`` shards the one chain's particle filter
+    over a 1 x P mesh (``fit_scan(mesh=..., num_chains=1)``; one process
+    per device, every one calling this alike; single-segment samplers
+    only, as in the JAX demo)."""
+    if n_particle_devices > 1 and seq:
+        raise ValueError("--n_particle_devices needs --mode single")
     sampler = make_sampler(model_name, observations, seed, seq, device)
     if init is not None:
         sampler.parameters = init
     sampler.project_parameters()
-    params_list = sampler.fit_scan_chunked(
-        "SGLD", num_iters=num_iters, chunk_iters=chunk_iters,
-        **leg_kwargs(method, N, seq))
+    if n_particle_devices > 1:
+        from ...io.checkpoint import unstack_trace
+        from ...models.base import params_map
+        from ...parallel import sharding
+        P = n_particle_devices
+        if sharding.world_size() != P:
+            raise ValueError(
+                f"--n_particle_devices {P} runs one process per device: "
+                f"launch the demo with torchrun --nproc_per_node {P}")
+        stacked = sampler.fit_scan_chunked(
+            "SGLD", num_iters=num_iters, chunk_iters=chunk_iters,
+            num_chains=1, mesh=sharding.make_mesh(1, P),
+            **leg_kwargs(method, N, seq))
+        params_list = unstack_trace(params_map(lambda x: x[0], stacked))
+    else:
+        params_list = sampler.fit_scan_chunked(
+            "SGLD", num_iters=num_iters, chunk_iters=chunk_iters,
+            **leg_kwargs(method, N, seq))
     sampler.select_chain(0)
     return sampler, params_list, list(range(len(params_list)))
 
@@ -197,6 +213,11 @@ def sgld_against_ld_ksd(device="cuda", seed: int = 0, T: int = 125,
     return out
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def build_parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--data", default=DEFAULT_DATA)
@@ -211,8 +232,10 @@ def build_parser():
                     help="default: 200, or 50 beyond 1000 observations")
     ap.add_argument("--N", type=int, default=1000)
     ap.add_argument("--n_particle_devices", type=int, default=1,
-                    help="shard the particle filter over P devices (not "
-                         "ported yet: > 1 raises)")
+                    help="shard the particle filter over P devices "
+                         "(fit_scan(mesh=...); --mode single only; one "
+                         "process per device, under torchrun "
+                         "--nproc_per_node P)")
     ap.add_argument("--segment", type=int, default=1)
     ap.add_argument("--out", default="./exchange_out")
     ap.add_argument("--device", default="cuda")
@@ -225,6 +248,15 @@ def main(argv=None) -> dict:
     from ...io import checkpoint as ckpt
     args = build_parser().parse_args(argv)
     seq = args.mode != "single"
+    if args.n_particle_devices > 1:
+        import torch.distributed as dist
+        if seq:
+            raise ValueError("--n_particle_devices needs --mode single")
+        if int(os.environ.get("WORLD_SIZE", 1)) > 1 and \
+                not dist.is_initialized():
+            from ...parallel.sharding import initialize_multi_host
+            initialize_multi_host()       # under torchrun
+    writes = _rank() == 0
     # the multi-sequence modes need every segment to hold an S=16, B=4
     # window
     segments = load_segments(args.data, min_len=25 if seq else 7)
@@ -254,8 +286,10 @@ def main(argv=None) -> dict:
         print(f"{method}: {len(params_list)} samples in {seconds:.1f} s "
               f"({seconds / iters:.4f} s an iteration); final loglik "
               f"{loglik:.2f}")
-        ckpt.save_trace(os.path.join(
-            args.out, f"{args.model}_{method}_trace.p"), params_list, times)
+        if writes:
+            ckpt.save_trace(os.path.join(
+                args.out, f"{args.model}_{method}_trace.p"), params_list,
+                times)
         results[method] = dict(samples=len(params_list), seconds=seconds,
                                seconds_per_iteration=seconds / iters,
                                loglikelihood=loglik,

@@ -43,6 +43,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..evaluation.evaluator import (OfflineEvaluator, SamplerEvaluator,
                                     half_average_parameters_list)
@@ -346,13 +347,41 @@ def _metric_fns(options, data):
                                           "logmse")]
 
 
-def _check_mesh_flags(args):
-    if (getattr(args, "num_particle_devices", 1) or 1) > 1 or \
-            getattr(args, "island_fused", False):
-        raise NotImplementedError(
-            "--num_particle_devices > 1 and --island_fused (the sharded "
-            "fits) are not ported yet (ROADMAP.md, Queue 1, slice 14: "
-            "parallel)")
+def _rank() -> int:
+    """This process's rank in the process group (0 without one)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _agree(flag: bool) -> bool:
+    """Rank 0's ``flag`` on every rank of the process group (the time
+    budget's decision, which each rank's own clock could split)."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return flag
+    box = [flag]
+    dist.broadcast_object_list(box, src=0)
+    return bool(box[0])
+
+
+def _mesh_kwargs(args, iter_type: str) -> dict:
+    """``fit_scan``'s keywords of ``--num_particle_devices P`` (each
+    chain's particle filter over P ranks: one process per device, under
+    ``torchrun --nproc_per_node``) and ``--island_fused``."""
+    P = getattr(args, "num_particle_devices", 1) or 1
+    island = getattr(args, "island_fused", False)
+    if P == 1:
+        if island:
+            raise ValueError("--island_fused needs --num_particle_devices "
+                             "> 1")
+        return {}
+    if iter_type != "SGLD":
+        raise ValueError(f"--num_particle_devices needs iter_type SGLD (the "
+                         f"distributed training step), not {iter_type!r}")
+    if not dist.is_initialized():
+        raise ValueError(
+            f"--num_particle_devices {P} runs one process per device: "
+            f"launch the driver with torchrun --nproc_per_node {P} (or a "
+            f"multiple of it)")
+    return dict(n_particle_devices=P, island_fused=island)
 
 
 def _generator_state(sampler) -> np.ndarray:
@@ -397,7 +426,6 @@ def do_fit_multichain(args, options):
     ``chain_parameters``: the stacked [C, n, ...] trace),
     out/fit/<id>_convergence.csv."""
     from ..metrics.convergence import convergence_summary
-    _check_mesh_flags(args)
     p = _paths(args.path)
     data = ckpt.load_pickle(os.path.join(p["in"], "data.p"))
     init = ckpt.load_pickle(
@@ -411,6 +439,9 @@ def do_fit_multichain(args, options):
         raise ValueError(
             f"--num_chains {C} needs a gradient iter_type "
             f"(SGLD/SGRLD/SGD/ADAGRAD), not {iter_type!r}")
+    mesh_kwargs = _mesh_kwargs(args, iter_type)
+    # under a process group every rank fits, rank 0 alone writes
+    writes = _rank() == 0
     sampler = _build_sampler(options, data, init, args.device)
     if not hasattr(sampler, "fit_scan"):
         raise ValueError(
@@ -444,22 +475,27 @@ def do_fit_multichain(args, options):
                     options["experiment_id"], it)
 
     t0 = time.perf_counter()
-    while time.perf_counter() - t0 < max_time and it < max_iters:
+    while _agree(time.perf_counter() - t0 < max_time) and it < max_iters:
         n = min(chunk, max_iters - it)
         trace = sampler.fit_scan(iter_type, num_iters=n, epsilon=eps,
                                  steps_per_iteration=steps, num_chains=C,
-                                 chain_init=chain_init, **step_kwargs)
+                                 chain_init=chain_init, **mesh_kwargs,
+                                 **step_kwargs)
         chain_init = "replicate"
         chunks.append(ckpt.tree_to_numpy(trace))
         it += n
         times.extend([time.perf_counter() - t0] * n)
-        ckpt.save_pickle(state_path, dict(
-            chunks=chunks, times=times, iteration=it,
-            parameters=ckpt.tree_to_numpy(sampler.parameters),
-            num_chains=C, generator_state=_generator_state(sampler),
-            adagrad_state=_adagrad_state(sampler)))
+        if writes:
+            ckpt.save_pickle(state_path, dict(
+                chunks=chunks, times=times, iteration=it,
+                parameters=ckpt.tree_to_numpy(sampler.parameters),
+                num_chains=C, generator_state=_generator_state(sampler),
+                adagrad_state=_adagrad_state(sampler)))
     trace = params_map(lambda *xs: np.concatenate(xs, axis=1), *chunks)
 
+    if not writes:
+        sampler.select_chain(0)
+        return sampler
     out_dir = ckpt.make_path(os.path.join(p["out"], "fit"))
     if it - int(it * 0.5) < 2:
         # half burned, fewer than two samples a chain: nothing to split
@@ -493,12 +529,14 @@ def do_fit(args, options):
     ``SamplerEvaluator.evaluate_sampler_step``, metrics every
     ``eval_freq`` seconds of sampler time and at the last iteration; the
     resume state carries the generator's state and ADAGRAD's, so a resumed
-    fit equals an uninterrupted one.  ``--num_chains C > 1``:
+    fit equals an uninterrupted one.  ``--num_chains C > 1`` and the
+    mesh flags (``--num_particle_devices``, ``--island_fused``):
     :func:`do_fit_multichain`.
     """
-    if getattr(args, "num_chains", 1) > 1:
+    if (getattr(args, "num_chains", 1) > 1
+            or (getattr(args, "num_particle_devices", 1) or 1) > 1
+            or getattr(args, "island_fused", False)):
         return do_fit_multichain(args, options)
-    _check_mesh_flags(args)
     p = _paths(args.path)
     data = ckpt.load_pickle(os.path.join(p["in"], "data.p"))
     init = ckpt.load_pickle(
@@ -958,10 +996,13 @@ def build_parser():
                              "convergence rows (1: the single-chain loop)")
     parser.add_argument("--num_particle_devices", type=int, default=1,
                         help="shard each chain's particle filter over P "
-                             "devices (not ported yet: > 1 raises)")
+                             "devices in --fit (fit_scan(n_particle_"
+                             "devices=P), SGLD only): one process per "
+                             "device, under torchrun --nproc_per_node")
     parser.add_argument("--island_fused", action="store_true",
-                        help="per-device fused island filters (not ported "
-                             "yet: raises)")
+                        help="with --num_particle_devices > 1: an "
+                             "independent fused-window island filter of "
+                             "N / P particles per device, averaged")
     parser.add_argument("--eval_chains", type=str, default="0",
                         choices=["0", "pooled"],
                         help="--eval/--trace_eval on a multichain trace: "
@@ -995,8 +1036,17 @@ def main(argv=None):
         format="%(levelname)s: %(asctime)s - %(name)s: %(message)s ")
     args = build_parser().parse_args(argv)
     p = _paths(args.path)
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1 and not dist.is_initialized():
+        from ..parallel.sharding import initialize_multi_host
+        initialize_multi_host()       # under torchrun
+    if dist.is_initialized() and _rank() != 0:
+        # the other ranks join --fit's collectives; rank 0 does the rest
+        args.setup = args.make_scripts = args.process_out = False
+        args.make_plots, args.eval, args.trace_eval = False, None, None
     if args.setup:
         do_setup(args)
+    if dist.is_initialized():
+        dist.barrier()
     options_list = None
     opts_path = os.path.join(p["in"], "options.p")
     if os.path.exists(opts_path):

@@ -140,13 +140,6 @@ class Sampler:
         return "pf" if self.model.has_pf else "marginal"
 
     def _score_config(self, **kwargs) -> sgmcmc.PFScoreConfig:
-        if (kwargs.get("mesh") is not None
-                or kwargs.get("n_particle_devices") is not None
-                or kwargs.get("island_fused")):
-            raise NotImplementedError(
-                "mesh=, n_particle_devices= and island_fused= (the sharded "
-                "fits) are not ported yet (ROADMAP.md, Queue 1, slice 14: "
-                "parallel)")
         return sgmcmc.PFScoreConfig(
             n_particles=kwargs.get("N", kwargs.get("n_particles", 1000)),
             subsequence_length=kwargs.get("subsequence_length", -1),
@@ -611,7 +604,9 @@ class Sampler:
     def fit_scan(self, iter_type: str, num_iters: int, epsilon: float = 0.1,
                  steps_per_iteration: int = 1, num_chains: int | None = None,
                  chain_init="replicate", record="all",
-                 return_aux: bool = False, **kwargs):
+                 return_aux: bool = False, mesh=None,
+                 n_particle_devices: int | None = None,
+                 island_fused: bool = False, **kwargs):
         """Run a fit of ``iter_type`` (SGLD, SGRLD, SGD, SGRD, ADAGRAD or
         SGLD-CV) and return the parameter trace.
 
@@ -625,7 +620,17 @@ class Sampler:
         log-likelihoods ``[C, iters]``.  ADAGRAD carries its state across
         calls; SGLD-CV takes ``centering_parameters`` (one chain or C) and
         ``centering_gradient``.
+
+        ``mesh=`` (``parallel.sharding.make_mesh``) or
+        ``n_particle_devices=P`` (a ``world / P`` x P mesh over the process
+        group) runs the distributed SGLD fit of
+        :meth:`_fit_scan_distributed`.
         """
+        if mesh is not None or n_particle_devices is not None:
+            return self._fit_scan_distributed(
+                iter_type, num_iters, epsilon, steps_per_iteration,
+                num_chains, chain_init, record, return_aux, mesh,
+                n_particle_devices, island_fused, **kwargs)
         if iter_type not in FIT_SCAN_TYPES:
             raise NotImplementedError(
                 f"fit_scan supports {'/'.join(FIT_SCAN_TYPES)}, not "
@@ -670,6 +675,69 @@ class Sampler:
             aux = aux[0]
             if trace is not None:
                 trace = params_map(lambda x: x[0], trace)
+        return (trace, aux) if return_aux else trace
+
+    def _fit_scan_distributed(self, iter_type, num_iters, epsilon,
+                              steps_per_iteration, num_chains, chain_init,
+                              record, return_aux, mesh, n_particle_devices,
+                              island_fused, **kwargs):
+        """``fit_scan(mesh=...)``: the chains split in blocks over the
+        mesh's chain axis, each chain's particle filter over its particle
+        axis (``parallel/training.py``: K1 at one particle rank, K1 islands
+        with ``island_fused``, else the sharded smoother).  SGLD on the
+        particle filter's score only.  Every rank of the process group
+        calls it alike; each returns the global ``[C, n_rec, ...]`` trace
+        (one gather over the chain group) and then holds the stacked ``[C,
+        ...]`` parameters."""
+        from ..parallel import sharding, training
+        m = self.model
+        if iter_type != "SGLD":
+            raise NotImplementedError(
+                "fit_scan(mesh=...) runs the distributed SGLD step "
+                "(parallel/training.py); other iter types run chain-"
+                "parallel through fit_scan(num_chains=...)")
+        if (kwargs.get("kind") or "pf") != "pf" or not m.has_pf:
+            raise NotImplementedError(
+                "fit_scan(mesh=...) shards the particle-filter gradient; "
+                f"model '{m.name}' must provide the PF path (kind='pf')")
+        if mesh is None:
+            world, P = sharding.world_size(), int(n_particle_devices)
+            if P < 1 or world % P:
+                raise ValueError(
+                    f"n_particle_devices={P} must divide the world size "
+                    f"{world} (one process per device: launch with "
+                    f"torchrun --nproc_per_node {max(P, 1)})")
+            mesh = sharding.make_mesh(world // P, P)
+        n_chain = sharding.axis_size(mesh, "chain")
+        C = int(num_chains) if num_chains is not None else n_chain
+        if C % n_chain:
+            raise ValueError(f"num_chains={C} must be a multiple of the "
+                             f"mesh's chain axis ({n_chain})")
+        n_rec, steps, output_all = self._record_plan(
+            num_iters, steps_per_iteration, record, num_chains=C)
+        cfg = self._score_config(**kwargs)
+        kernel_name = kwargs.get("kernel")
+        fused = m.get_fused(kernel_name) if m.get_fused else None
+        step = training.make_distributed_sgld_step(
+            m.get_kernel(kernel_name), m.grad_statistic,
+            m.grad_statistic_dim, m.unpack_grad,
+            lambda p: m.grad_logprior(self.prior, p), cfg, self.T, mesh,
+            epsilon=float(epsilon), prior_mean_var_fn=m.prior_mean_var,
+            project_fn=m.project_parameters,
+            is_scaled=kwargs.get("is_scaled", True), fused_model=fused,
+            island_fused=island_fused,
+            warn_small_islands=kwargs.get("warn_small_islands", True))
+        fit = training.make_distributed_fit_recorded(step, n_rec, steps,
+                                                     output_all)
+        params0 = self._chain_init_params(C, chain_init)
+        shared, own = training.rank_generators(self.generator, mesh)
+        params, trace, aux = fit(shared, own,
+                                 sharding.shard_chain_states(mesh, params0),
+                                 self.observations)
+        self.parameters = sharding.gather_chain_states(mesh, params)
+        if trace is not None:
+            trace = sharding.gather_chain_states(mesh, trace)
+        aux = sharding.gather_chain_states(mesh, aux)
         return (trace, aux) if return_aux else trace
 
     def fit_scan_chunked(self, iter_type: str, num_iters: int,

@@ -135,16 +135,21 @@ class PFScore(nn.Module):
         self.fused_lambduh = (1.0 if config.smoother == "poyiadjis_N"
                               else config.lambduh)
         self.valid_gate = False
+        # the distributed step's island filters take the fused window on
+        # the CPU too (its plain version), as the JAX package's do
+        self.fused_on_cpu = False
 
     def uses_fused(self, device) -> bool:
         """Whether the score runs the fused window kernel on ``device``:
         the route rule of the module docstring.  A particle count whose
         block exceeds the card's shared memory takes the unfused route."""
-        return (torch.device(device).type == "cuda"
-                and _fused_eligible(self.config, self.fused_model)
-                and fused_pf.fits_shared_memory(
-                    self.fused_model.body, self.W, self.config.n_particles,
-                    self.valid_gate))
+        if not _fused_eligible(self.config, self.fused_model):
+            return False
+        if torch.device(device).type != "cuda":
+            return self.fused_on_cpu
+        return fused_pf.fits_shared_memory(
+            self.fused_model.body, self.W, self.config.n_particles,
+            self.valid_gate)
 
     @property
     def rows_per_chain(self) -> int:
@@ -209,14 +214,15 @@ class PFScore(nn.Module):
         ``loglik [C, M]``: the minibatch mean."""
         return stat.mean(1), loglik.mean(1)
 
-    def forward(self, generator, params, observations: torch.Tensor,
-                draws: WindowDraws | None = None):
-        cfg = self.config
-        C, M = params.num_chains, self.rows_per_chain
-        R, dt = C * M, observations.dtype
+    def inputs(self, params, observations: torch.Tensor,
+               draws: WindowDraws):
+        """The particle filter's inputs for the rows of ``draws``: (row
+        parameters, windows [R, W, m], step weights [R, W], in-window [R,
+        W], step validity [R, W] or None, prior mean [R], prior variance
+        [R])."""
+        M = self.rows_per_chain
+        R, dt = draws.start.shape[0], observations.dtype
         dev = observations.device
-        if draws is None:
-            draws = self.draw(generator, C, dev)
         rows = params if M == 1 else params_map(
             lambda x: x.repeat_interleave(M, 0), params)
         window, step_w, in_win, valid = self._layout(draws, observations)
@@ -225,6 +231,15 @@ class PFScore(nn.Module):
             pv = torch.full((R,), 10.0, dtype=dt, device=dev)
         else:
             pm, pv = self.prior_mean_var_fn(rows)
+        return rows, window, step_w, in_win, valid, pm, pv
+
+    def row_scores(self, generator, params, observations: torch.Tensor,
+                   draws: WindowDraws):
+        """Each row's ``(statistic [R, H], loglik [R])`` on ``draws``."""
+        cfg = self.config
+        dev = observations.device
+        rows, window, step_w, in_win, valid, pm, pv = self.inputs(
+            params, observations, draws)
         if self.uses_fused(dev):
             stat, ll = fused_pf_score(
                 self.fused_model, rows, window[..., 0], step_w, draws.z0,
@@ -242,6 +257,14 @@ class PFScore(nn.Module):
                 bw_chunk=cfg.bw_chunk, step_valid=valid, v=draws.v,
                 generator=generator)
             stat, ll = out.mean_statistic, out.loglikelihood
+        return stat, ll
+
+    def forward(self, generator, params, observations: torch.Tensor,
+                draws: WindowDraws | None = None):
+        C, M = params.num_chains, self.rows_per_chain
+        if draws is None:
+            draws = self.draw(generator, C, observations.device)
+        stat, ll = self.row_scores(generator, params, observations, draws)
         stat, ll = self._combine(stat.reshape(C, M, -1), ll.reshape(C, M),
                                  draws)
         return self.unpack(stat), ll

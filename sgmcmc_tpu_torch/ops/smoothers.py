@@ -237,6 +237,34 @@ def _bw_row_chunks(bw_chunk: int | None, n: int) -> int:
     return n // bw_chunk
 
 
+def poyiadjis_n2_statistics(kernel: ParticleKernel, stat_fn: StatisticFn,
+                            params, carry: PFCarry, new_particles,
+                            inp: PFStepInput, bw_chunk: int | None = None,
+                            slots: ElementwiseSlots | None = None):
+    """The O(N^2) smoother's new statistics [C, R, H] of the rows
+    ``new_particles [C, R, D]`` over the previous cloud ``carry`` (N
+    particles): ``sum_j BW[i, j] * (stats[j] + scale * h(x_j, x'_i))``,
+    the rows streamed in blocks of ``bw_chunk``."""
+    scale = (inp.weight * inp.in_window)[:, None, None]
+    C, n = carry.log_weights.shape
+    R = new_particles.shape[1]
+    rows = R // _bw_row_chunks(bw_chunk, R)
+
+    def rows_to_stats(x_next_c):
+        """[C, r, D] new-particle rows -> [C, r, H] statistics."""
+        x_t, x_next = _pairs(carry.particles, x_next_c)
+        bw = torch.softmax(_backward_log_weights(
+            kernel, params, carry.log_weights, x_t, x_next), -1)
+        smoothed = bw @ carry.statistics                        # [C, r, H]
+        h = stat_fn(params, x_t, x_next, inp.y, inp.t)          # [C, r*N, H]
+        h_term = (bw[:, :, None, :]
+                  @ h.reshape(C, x_next_c.shape[1], n, -1))[:, :, 0]
+        return _add_statistic(smoothed, scale * h_term, inp.t, slots)
+
+    return torch.cat([rows_to_stats(new_particles[:, r:r + rows])
+                      for r in range(0, R, rows)], 1)
+
+
 def make_poyiadjis_n2_step(kernel: ParticleKernel, stat_fn: StatisticFn,
                            resampler_name: str = "multinomial",
                            resample_mode: str = "auto",
@@ -253,23 +281,8 @@ def make_poyiadjis_n2_step(kernel: ParticleKernel, stat_fn: StatisticFn,
         parents, particles, log_w, _ = _propagate_apply(
             kernel, resampler_name, resample_mode, params, inp.u, inp.z,
             carry.particles, carry.log_weights, None, inp.y, ess_threshold)
-        scale = (inp.weight * inp.in_window)[:, None, None]
-        C, n = log_w.shape
-        rows = n // _bw_row_chunks(bw_chunk, n)
-
-        def rows_to_stats(x_next_c):
-            """[C, R, D] new-particle rows -> [C, R, H] statistics."""
-            x_t, x_next = _pairs(carry.particles, x_next_c)
-            bw = torch.softmax(_backward_log_weights(
-                kernel, params, carry.log_weights, x_t, x_next), -1)
-            smoothed = bw @ carry.statistics                    # [C, R, H]
-            h = stat_fn(params, x_t, x_next, inp.y, inp.t)      # [C, R*N, H]
-            h_term = (bw[:, :, None, :]
-                      @ h.reshape(C, x_next_c.shape[1], n, -1))[:, :, 0]
-            return _add_statistic(smoothed, scale * h_term, inp.t, slots)
-
-        stats = torch.cat([rows_to_stats(particles[:, r:r + rows])
-                           for r in range(0, n, rows)], 1)
+        stats = poyiadjis_n2_statistics(kernel, stat_fn, params, carry,
+                                        particles, inp, bw_chunk, slots)
         loglik = carry.loglik + inp.weight * inp.in_window * \
             _loglik_increment(log_w)
         return PFCarry(particles, log_w, stats, loglik)
@@ -279,15 +292,17 @@ def make_poyiadjis_n2_step(kernel: ParticleKernel, stat_fn: StatisticFn,
 
 def _backward_indices(kernel: ParticleKernel, params, particles,
                       log_weights, new_particles, v, bw_chunk):
-    """Backward indices J [C, N, K]: ``J[c, i, k]`` is the inverse CDF of
-    row i of the normalised backward weights at ``v[c, i, k]``, with the
-    rows streamed in blocks of ``bw_chunk`` (float64 CDF, rounded once, as
+    """Backward indices J [C, R, K] of the rows ``new_particles [C, R,
+    D]`` over the N particles: ``J[c, i, k]`` is the inverse CDF of row i
+    of the normalised backward weights at ``v[c, i, k]``, with the rows
+    streamed in blocks of ``bw_chunk`` (float64 CDF, rounded once, as
     every selection of the port)."""
     C, n = log_weights.shape
     K = v.shape[-1]
-    rows = n // _bw_row_chunks(bw_chunk, n)
+    R = new_particles.shape[1]
+    rows = R // _bw_row_chunks(bw_chunk, R)
     out = []
-    for r in range(0, n, rows):
+    for r in range(0, R, rows):
         x_t, x_next = _pairs(particles, new_particles[:, r:r + rows])
         log_bw = _backward_log_weights(kernel, params, log_weights, x_t,
                                        x_next)                  # [C, R, N]

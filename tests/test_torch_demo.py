@@ -109,13 +109,20 @@ def test_fit_model_legs_take_their_routes(npz, monkeypatch):
 
 
 def test_sharded_fit_raises(npz):
+    """--n_particle_devices P runs one process per device: in one process
+    it raises, naming torchrun; the multi-sequence modes refuse it, as in
+    the JAX demo."""
     obs = demo.load_segments(npz)[1]
-    with pytest.raises(NotImplementedError, match="slice 14"):
+    with pytest.raises(ValueError, match="torchrun"):
         demo.fit_model("svm", obs, "sgld", 2, 32, n_particle_devices=2,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 14"):
+    with pytest.raises(ValueError, match="torchrun"):
         demo.main(["--data", npz, "--n_particle_devices", "2", "--device",
                    "cpu", "--sgld_iters", "2", "--ld_iters", "1"])
+    with pytest.raises(ValueError, match="--mode single"):
+        demo.main(["--data", npz, "--mode", "subset", "--n_particle_devices",
+                   "2", "--device", "cpu", "--sgld_iters", "2",
+                   "--ld_iters", "1"])
 
 
 @pytest.mark.parametrize("mode", ["single", "subset"])

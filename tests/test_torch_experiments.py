@@ -570,9 +570,11 @@ def test_slds_driver_setup_fit_eval(tmp_path):
 @pytest.mark.parametrize("flag", [["--num_particle_devices", "2"],
                                   ["--island_fused"]])
 def test_mesh_flags_raise(tmp_path, flag):
+    """Without a process group --num_particle_devices 2 raises, naming
+    torchrun (one process per device); --island_fused needs it."""
     args = args_for(tmp_path, "svm", *flag)
     opts = driver.do_setup(args, small_grid("svm", ["POYIADJIS_N_1000"]))
-    with pytest.raises(NotImplementedError, match="slice 14"):
+    with pytest.raises(ValueError, match="torchrun|--num_particle_devices"):
         driver.do_fit(args, opts[0])
 
 

@@ -86,12 +86,24 @@ def test_resample_mode_rule(smem_calls, mode, fused):
                                 dict(n_particle_devices=2),
                                 dict(island_fused=True)])
 def test_sharded_fit_keywords_raise(kw):
+    """``mesh=`` and ``n_particle_devices=`` route fit_scan to the
+    distributed fit, whose contract errors come before any mesh is read or
+    made: SGLD only, the particle filter's score only, and a P that
+    divides the world (none here: it names torchrun).  ``island_fused``
+    alone selects nothing, as in the JAX package's fit_scan."""
     s = samplers.SVMSampler(observations=np.zeros(30, np.float32),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        s.fit_scan("SGLD", num_iters=1, N=16, **kw)
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        s.noisy_loglikelihood(**kw)
+    if "island_fused" in kw:
+        trace = s.fit_scan("SGLD", num_iters=1, N=16, **kw)
+        assert bool(torch.isfinite(trace.A).all())
+        return
+    with pytest.raises(NotImplementedError, match="SGLD"):
+        s.fit_scan("SGD", num_iters=1, N=16, **kw)
+    with pytest.raises(NotImplementedError, match="kind='pf'"):
+        s.fit_scan("SGLD", num_iters=1, N=16, kind="marginal", **kw)
+    if "n_particle_devices" in kw:
+        with pytest.raises(ValueError, match="torchrun"):
+            s.fit_scan("SGLD", num_iters=1, N=16, **kw)
     assert s._cache == {}
 
 
