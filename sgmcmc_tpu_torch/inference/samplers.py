@@ -34,7 +34,7 @@ from ..ops import hmm as hmm_ops
 from ..ops.buffered import run_buffered_pf, window_weights
 from ..ops.subsequence import (sample_buffered_window, slice_window,
                                window_length)
-from ..utils.profiling import sync
+from ..utils.profiling import span, sync
 from . import sgmcmc
 
 
@@ -626,56 +626,59 @@ class Sampler:
         group) runs the distributed SGLD fit of
         :meth:`_fit_scan_distributed`.
         """
-        if mesh is not None or n_particle_devices is not None:
-            return self._fit_scan_distributed(
-                iter_type, num_iters, epsilon, steps_per_iteration,
-                num_chains, chain_init, record, return_aux, mesh,
-                n_particle_devices, island_fused, **kwargs)
-        if iter_type not in FIT_SCAN_TYPES:
-            raise NotImplementedError(
-                f"fit_scan supports {'/'.join(FIT_SCAN_TYPES)}, not "
-                f"'{iter_type}'")
-        m, T = self.model, self.T
-        if iter_type == "SGLD-CV":
-            c_params = kwargs.pop("centering_parameters")
-            c_grad = kwargs.pop("centering_gradient")
-        n_rec, steps, output_all = self._record_plan(
-            num_iters, steps_per_iteration, record, num_chains)
-        if iter_type in _STEP_OF:
-            step = self._step(_STEP_OF[iter_type], epsilon, **kwargs)
-        else:
-            grad_fn = self._grad_fn(**kwargs)
-        squeeze = num_chains is None and self._num_chains is None
-        params0 = (self.parameters if num_chains is None else
-                   self._chain_init_params(int(num_chains), chain_init))
-        if iter_type == "ADAGRAD":
-            def state_step(gen, p, st, obs):
-                return sgmcmc.adagrad_step(gen, p, st, obs, grad_fn, epsilon)
-
-            params, self._adagrad_state, trace, aux = sgmcmc.fit_with_state(
-                self.generator, params0, self._adagrad_state_for(params0),
-                self.observations, state_step, n_rec,
-                project_fn=m.project_parameters, steps_per_iter=steps,
-                output_all=output_all)
-        else:
+        with span("sgmcmc.fit_scan"):
+            if mesh is not None or n_particle_devices is not None:
+                return self._fit_scan_distributed(
+                    iter_type, num_iters, epsilon, steps_per_iteration,
+                    num_chains, chain_init, record, return_aux, mesh,
+                    n_particle_devices, island_fused, **kwargs)
+            if iter_type not in FIT_SCAN_TYPES:
+                raise NotImplementedError(
+                    f"fit_scan supports {'/'.join(FIT_SCAN_TYPES)}, not "
+                    f"'{iter_type}'")
+            m, T = self.model, self.T
             if iter_type == "SGLD-CV":
-                centre, c_grad = self._centre(c_params, c_grad,
-                                              params0.num_chains)
+                c_params = kwargs.pop("centering_parameters")
+                c_grad = kwargs.pop("centering_gradient")
+            n_rec, steps, output_all = self._record_plan(
+                num_iters, steps_per_iteration, record, num_chains)
+            if iter_type in _STEP_OF:
+                step = self._step(_STEP_OF[iter_type], epsilon, **kwargs)
+            else:
+                grad_fn = self._grad_fn(**kwargs)
+            squeeze = num_chains is None and self._num_chains is None
+            params0 = (self.parameters if num_chains is None else
+                       self._chain_init_params(int(num_chains), chain_init))
+            if iter_type == "ADAGRAD":
+                def state_step(gen, p, st, obs):
+                    return sgmcmc.adagrad_step(gen, p, st, obs, grad_fn,
+                                               epsilon)
 
-                def step(gen, p, obs):
-                    return sgmcmc.sgld_cv_step(gen, p, obs, grad_fn, centre,
-                                               c_grad, epsilon, T)
+                params, self._adagrad_state, trace, aux = \
+                    sgmcmc.fit_with_state(
+                        self.generator, params0,
+                        self._adagrad_state_for(params0), self.observations,
+                        state_step, n_rec, project_fn=m.project_parameters,
+                        steps_per_iter=steps, output_all=output_all)
+            else:
+                if iter_type == "SGLD-CV":
+                    centre, c_grad = self._centre(c_params, c_grad,
+                                                  params0.num_chains)
 
-            params, trace, aux = sgmcmc.fit(
-                self.generator, params0, self.observations, step, n_rec,
-                project_fn=m.project_parameters, steps_per_iter=steps,
-                output_all=output_all)
-        self.parameters = params
-        if squeeze:
-            aux = aux[0]
-            if trace is not None:
-                trace = params_map(lambda x: x[0], trace)
-        return (trace, aux) if return_aux else trace
+                    def step(gen, p, obs):
+                        return sgmcmc.sgld_cv_step(gen, p, obs, grad_fn,
+                                                   centre, c_grad, epsilon, T)
+
+                params, trace, aux = sgmcmc.fit(
+                    self.generator, params0, self.observations, step, n_rec,
+                    project_fn=m.project_parameters, steps_per_iter=steps,
+                    output_all=output_all)
+            self.parameters = params
+            if squeeze:
+                aux = aux[0]
+                if trace is not None:
+                    trace = params_map(lambda x: x[0], trace)
+            return (trace, aux) if return_aux else trace
 
     def _fit_scan_distributed(self, iter_type, num_iters, epsilon,
                               steps_per_iteration, num_chains, chain_init,

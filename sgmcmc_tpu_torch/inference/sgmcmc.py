@@ -39,6 +39,7 @@ from ..ops.cuda.philox import STREAM_INIT, philox_normals
 from ..ops.subsequence import (buffered_window, sample_start,
                                sequence_window, slice_window,
                                subsequence_weights, window_length)
+from ..utils.profiling import span
 
 RNG_MODES = ("host", "kernel")
 PARIS_SMOOTHERS = ("paris", "paris_ar")
@@ -240,12 +241,13 @@ class PFScore(nn.Module):
         dev = observations.device
         rows, window, step_w, in_win, valid, pm, pv = self.inputs(
             params, observations, draws)
-        if self.uses_fused(dev):
-            stat, ll = fused_pf_score(
-                self.fused_model, rows, window[..., 0], step_w, draws.z0,
-                draws.normals, draws.u, pm, pv, self.fused_lambduh,
-                cfg.ess_threshold, draws.seeds, valid)
-        else:
+        with span("sgmcmc.score.filter"):
+            if self.uses_fused(dev):
+                return fused_pf_score(
+                    self.fused_model, rows, window[..., 0], step_w,
+                    draws.z0, draws.normals, draws.u, pm, pv,
+                    self.fused_lambduh, cfg.ess_threshold, draws.seeds,
+                    valid)
             out = run_buffered_pf(
                 self.kernel, self.stat_fn, rows, window, z0=draws.z0,
                 normals=draws.normals, u=draws.u,
@@ -256,18 +258,20 @@ class PFScore(nn.Module):
                 n_tilde=cfg.n_tilde, ess_threshold=cfg.ess_threshold,
                 bw_chunk=cfg.bw_chunk, step_valid=valid, v=draws.v,
                 generator=generator)
-            stat, ll = out.mean_statistic, out.loglikelihood
-        return stat, ll
+            return out.mean_statistic, out.loglikelihood
 
     def forward(self, generator, params, observations: torch.Tensor,
                 draws: WindowDraws | None = None):
         C, M = params.num_chains, self.rows_per_chain
-        if draws is None:
-            draws = self.draw(generator, C, observations.device)
-        stat, ll = self.row_scores(generator, params, observations, draws)
-        stat, ll = self._combine(stat.reshape(C, M, -1), ll.reshape(C, M),
-                                 draws)
-        return self.unpack(stat), ll
+        with span("sgmcmc.score"):
+            if draws is None:
+                with span("sgmcmc.score.draw"):
+                    draws = self.draw(generator, C, observations.device)
+            stat, ll = self.row_scores(generator, params, observations,
+                                       draws)
+            stat, ll = self._combine(stat.reshape(C, M, -1),
+                                     ll.reshape(C, M), draws)
+            return self.unpack(stat), ll
 
 
 class SeqPFScore(PFScore):
@@ -772,14 +776,15 @@ def fit_with_state(generator, params, state, observations, step_fn,
     loglik)``.  Returns ``(params, state, trace, aux)``."""
     trace, aux = [], []
     for _ in range(num_iters):
-        for _ in range(steps_per_iter):
-            params, state, ll = step_fn(generator, params, state,
-                                        observations)
-            if project_fn is not None:
-                params = project_fn(params)
-        if output_all:
-            trace.append(params)
-        aux.append(ll)
+        with span("sgmcmc.iter"):
+            for _ in range(steps_per_iter):
+                params, state, ll = step_fn(generator, params, state,
+                                            observations)
+                if project_fn is not None:
+                    params = project_fn(params)
+            if output_all:
+                trace.append(params)
+            aux.append(ll)
     stacked = (params_map(lambda *xs: torch.stack(xs, 1), *trace)
                if output_all else None)
     return params, state, stacked, torch.stack(aux, 1)

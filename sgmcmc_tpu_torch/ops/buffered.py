@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.base import ParticleKernel, StatisticFn
+from ..utils.profiling import span
 from .resampling import normalize_log_weights
 from .smoothers import (ElementwiseSlots, PFCarry, PFStepInput,
                         make_smoother_step)
@@ -131,26 +132,27 @@ def run_buffered_pf(
                     torch.zeros((C,), dtype=dtype, device=dev))
     saved = []
     for t in range(W):
-        new = step(params, carry, PFStepInput(
-            z=normals[:, t].transpose(1, 2), u=u[:, t],
-            y=observations[:, t], weight=step_weights[:, t],
-            in_window=in_window[:, t], t=t,
-            v=None if v is None else v[:, t],
-            J=None if J is None else J[:, t], generator=generator))
-        if step_valid is not None:
-            act = step_valid[:, t] > 0
-            new = PFCarry(*[torch.where(
-                act.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
-                for n, o in zip(new, carry)])
-        carry = new
-        if fixed_lag is not None:
-            # slot t - lag over the current cloud: E[h_{t-lag} | y_{<= t}]
-            c0 = max(t - fixed_lag, 0) * statistic_dim
-            probs = normalize_log_weights(carry.log_weights)
-            saved.append((probs[:, None, :] @ carry.statistics[
-                ..., c0:c0 + statistic_dim])[:, 0])            # [C, dim]
-        elif save_all:
-            saved.append(carry)
+        with span("sgmcmc.smoother.step"):
+            new = step(params, carry, PFStepInput(
+                z=normals[:, t].transpose(1, 2), u=u[:, t],
+                y=observations[:, t], weight=step_weights[:, t],
+                in_window=in_window[:, t], t=t,
+                v=None if v is None else v[:, t],
+                J=None if J is None else J[:, t], generator=generator))
+            if step_valid is not None:
+                act = step_valid[:, t] > 0
+                new = PFCarry(*[torch.where(
+                    act.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
+                    for n, o in zip(new, carry)])
+            carry = new
+            if fixed_lag is not None:
+                # slot t - lag over the current cloud: E[h_{t-lag} | y_{<= t}]
+                c0 = max(t - fixed_lag, 0) * statistic_dim
+                probs = normalize_log_weights(carry.log_weights)
+                saved.append((probs[:, None, :] @ carry.statistics[
+                    ..., c0:c0 + statistic_dim])[:, 0])            # [C, dim]
+            elif save_all:
+                saved.append(carry)
     mean_stat = average_statistic(carry.statistics, carry.log_weights)
     if fixed_lag is not None:
         lag = min(fixed_lag, W)

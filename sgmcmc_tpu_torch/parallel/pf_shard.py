@@ -41,6 +41,7 @@ from ..ops.resampling import normalize_log_weights
 from ..ops.smoothers import (PFCarry, PFStepInput, _backward_indices,
                              _check_n_tilde, _ess_gate, _rewired_statistics,
                              poyiadjis_n2_statistics)
+from ..utils.profiling import span
 from .sharding import all_gather_cat, all_reduce
 
 SUM, MAX = dist.ReduceOp.SUM, dist.ReduceOp.MAX
@@ -214,12 +215,13 @@ def run_buffered_pf_sharded(kernel: ParticleKernel, stat_fn: StatisticFn,
                     torch.zeros(stats_shape, dtype=dtype, device=dev),
                     torch.zeros((C,), dtype=dtype, device=dev))
     for t in range(W):
-        carry = step(params, carry, PFStepInput(
-            z=normals[:, t].transpose(1, 2), u=u[:, t],
-            y=observations[:, t], weight=step_weights[:, t],
-            in_window=in_window[:, t], t=t,
-            v=None if v is None else v[:, t],
-            J=None if J is None else J[:, t]))
+        with span("sgmcmc.smoother.step"):
+            carry = step(params, carry, PFStepInput(
+                z=normals[:, t].transpose(1, 2), u=u[:, t],
+                y=observations[:, t], weight=step_weights[:, t],
+                in_window=in_window[:, t], t=t,
+                v=None if v is None else v[:, t],
+                J=None if J is None else J[:, t]))
     if smoother == "filter":
         return carry.statistics, carry.loglik
     m = all_reduce(carry.log_weights.amax(-1), MAX, group)

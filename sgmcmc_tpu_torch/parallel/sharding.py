@@ -13,7 +13,8 @@ same two axes with a :class:`~torch.distributed.device_mesh.DeviceMesh`:
 The mesh is row-major, ``rank = chain_idx * P + particle_idx``, as JAX's
 ``reshape(n_chain, n_particle)``; a tiled all-gather over a particle group
 therefore concatenates the shards in particle order.  Collectives over a
-group of one rank are skipped.
+group of one rank are skipped; each one that runs is a
+``sgmcmc.collective`` span in a profiler's trace.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..models.base import params_map
+from ..utils.profiling import span
 
 AXES = ("chain", "particle")
 # all_gather_single replaces all_gather_into_tensor from torch 2.13 on
@@ -145,7 +147,8 @@ def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     # the concatenated form along dim 0, the one every backend takes
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    _all_gather(out, x.contiguous(), group=group)
+    with span("sgmcmc.collective"):
+        _all_gather(out, x.contiguous(), group=group)
     if dim == 0:
         return out
     out = out.reshape((n,) + tuple(x.shape)).movedim(0, dim)
@@ -159,7 +162,8 @@ def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     if group is None:
         return x
     out = x.clone()
-    dist.all_reduce(out, op=op, group=group)
+    with span("sgmcmc.collective"):
+        dist.all_reduce(out, op=op, group=group)
     return out
 
 

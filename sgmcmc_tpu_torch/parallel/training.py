@@ -37,6 +37,7 @@ from ..inference import sgmcmc
 from ..inference.sgmcmc import PFScore, PFScoreConfig, WindowDraws
 from ..models.base import ParticleKernel, StatisticFn
 from ..ops.subsequence import sample_start
+from ..utils.profiling import span
 from . import sharding
 from .pf_shard import SUM, run_buffered_pf_sharded
 
@@ -88,8 +89,9 @@ def island_row_scores(score: PFScore, shared, own, params, observations,
     draws, summed over ``group`` and divided by its size P."""
     P = dist.get_world_size(group)
     R = params.num_chains * score.rows_per_chain
-    draws = score._noise(own, observations.device,
-                         _starts(score, shared, R, observations.device))
+    with span("sgmcmc.score.draw"):
+        draws = score._noise(own, observations.device,
+                             _starts(score, shared, R, observations.device))
     stat, ll = score.row_scores(own, params, observations, draws)
     return (sharding.all_reduce(stat, SUM, group) / P,
             sharding.all_reduce(ll, SUM, group) / P)
@@ -105,25 +107,28 @@ def sharded_row_scores(score: PFScore, shared, own, params, observations,
     n_local = cfg.n_particles // dist.get_world_size(group)
     dev = observations.device
     R = params.num_chains * score.rows_per_chain
-    start = _starts(score, shared, R, dev)
     W, Z = score.W, score.kernel.noise_dim
-    z0 = torch.randn((R, Z, n_local), generator=own, device=dev)
-    normals = torch.randn((R, W, Z, n_local), generator=own, device=dev)
-    u = (torch.rand((R, W), generator=shared, device=dev)
-         if cfg.resampler == "systematic" else
-         torch.rand((R, W, n_local), generator=own, device=dev))
-    v = (torch.rand((R, W, n_local, cfg.n_tilde), generator=own,
-                    device=dev) if cfg.smoother == "paris" else None)
+    with span("sgmcmc.score.draw"):
+        start = _starts(score, shared, R, dev)
+        z0 = torch.randn((R, Z, n_local), generator=own, device=dev)
+        normals = torch.randn((R, W, Z, n_local), generator=own, device=dev)
+        u = (torch.rand((R, W), generator=shared, device=dev)
+             if cfg.resampler == "systematic" else
+             torch.rand((R, W, n_local), generator=own, device=dev))
+        v = (torch.rand((R, W, n_local, cfg.n_tilde), generator=own,
+                        device=dev) if cfg.smoother == "paris" else None)
     draws = WindowDraws(start, z0, normals, u, v=v)
     rows, window, step_w, in_win, _, pm, pv = score.inputs(
         params, observations, draws)
-    return run_buffered_pf_sharded(
-        score.kernel, score.stat_fn, rows, window, z0=z0, normals=normals,
-        u=u, statistic_dim=score.statistic_dim, group=group,
-        smoother=cfg.smoother, step_weights=step_w, in_window=in_win,
-        prior_mean=pm, prior_var=pv, resampler=cfg.resampler,
-        lambduh=cfg.lambduh, n_tilde=cfg.n_tilde,
-        ess_threshold=cfg.ess_threshold, bw_chunk=cfg.bw_chunk, v=v)
+    with span("sgmcmc.score.filter"):
+        return run_buffered_pf_sharded(
+            score.kernel, score.stat_fn, rows, window, z0=z0,
+            normals=normals, u=u, statistic_dim=score.statistic_dim,
+            group=group, smoother=cfg.smoother, step_weights=step_w,
+            in_window=in_win, prior_mean=pm, prior_var=pv,
+            resampler=cfg.resampler, lambduh=cfg.lambduh,
+            n_tilde=cfg.n_tilde, ess_threshold=cfg.ess_threshold,
+            bw_chunk=cfg.bw_chunk, v=v)
 
 
 def make_distributed_sgld_step(
@@ -184,11 +189,12 @@ def make_distributed_sgld_step(
         group = sharding.axis_group(mesh, "particle")
 
         def sharded_score(shared, params, observations, draws=None):
-            stat, ll = rows_fn(score, shared, own, params, observations,
-                               group)
-            C = params.num_chains
-            return (unpack(stat.reshape(C, M, -1).mean(1)),
-                    ll.reshape(C, M).mean(1))
+            with span("sgmcmc.score"):
+                stat, ll = rows_fn(score, shared, own, params, observations,
+                                   group)
+                C = params.num_chains
+                return (unpack(stat.reshape(C, M, -1).mean(1)),
+                        ll.reshape(C, M).mean(1))
 
         return sharded_score
 

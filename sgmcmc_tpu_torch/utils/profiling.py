@@ -3,17 +3,32 @@
 Counterpart of ``sgmcmc_tpu/utils/profiling.py``.  ``trace(dir)`` wraps a
 region in a ``torch.profiler`` trace (CPU and, where there is one, CUDA
 activity) and writes it as a Chrome trace that loads in Perfetto;
-``sync`` waits for the card's work behind a result by reading one of its
-elements on the host; ``Timer`` is a named wall-clock split timer.
+``span(name)`` marks a region of the program in that trace; ``sync``
+waits for the card's work behind a result by reading one of its elements
+on the host.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import os
-import time
 
 import torch
+from torch.autograd import _profiler_enabled
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks a region named ``name`` in the profiler's
+    trace: ``with profiling.span("sgmcmc.iter"): ...``.  Under an active
+    ``torch.profiler`` it is ``record_function(name)`` (a user annotation
+    on the trace's own clock, beside the kernels it launched); otherwise
+    one shared no-op context, so a span costs one check when no profiler
+    runs."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -57,33 +72,3 @@ def sync(x) -> float | None:
     t = _first_tensor(x)
     return None if t is None else float(t.reshape(-1)[0])
 
-
-class Timer:
-    """Named wall-clock split timer.
-
-    >>> t = Timer()
-    >>> with t.section("sampler"):
-    ...     out = step(...)
-    ...     sync(out)
-    >>> t.totals  # {"sampler": seconds}
-    """
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def section(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def rows(self):
-        """Tidy metric rows (metric, variable, value, count)."""
-        return [dict(metric="runtime", variable=k,
-                     value=self.totals[k], count=self.counts[k])
-                for k in sorted(self.totals)]

@@ -358,17 +358,13 @@ def test_plotting_writes_its_files(tmp_path):
 
 
 def test_profiling_helpers(tmp_path):
-    t = profiling.Timer()
-    for _ in range(2):
-        with t.section("a"):
-            profiling.sync(torch.ones(3))
-    assert t.counts == {"a": 2} and t.rows()[0]["variable"] == "a"
     p = lgssm.from_scalars(*TRUTH)
     assert profiling.sync(p) == pytest.approx(0.8)
     assert profiling.sync({"x": [1, torch.tensor([2.0])]}) == 2.0
     with profiling.trace(str(tmp_path)) as prof:
-        torch.ones(64).cumsum(0)
-    assert os.path.getsize(tmp_path / "trace.json") > 0
+        with profiling.span("sgmcmc.iter"):
+            torch.ones(64).cumsum(0)
+    assert "sgmcmc.iter" in (tmp_path / "trace.json").read_text()
     assert len(prof.key_averages()) > 0
 
 

@@ -20,7 +20,8 @@ in ``tmp_path`` and write their results to ``.npz`` files:
   unsharded one on the same float32 draws (rtol 1e-5, atol 1e-5: the two
   reduce in different orders); the distributed SGLD fits: deterministic,
   both particle ranks holding the same parameters after every iteration
-  (sharded, multinomial, island), the island score equal bitwise to the
+  (sharded, multinomial, island), two collectives an iteration in the
+  profiled island fit, the island score equal bitwise to the
   mean of the two ranks' islands rerun by ``fused_window_reference`` here,
   and the small-island warning.
 * ``chain`` (a 2 x 1 mesh): the mesh coordinates, the chain blocks, the
@@ -291,6 +292,14 @@ def test_island_score_is_the_mean_of_two_islands(runs):
     for r in runs.out["shard"]:
         assert torch.equal(torch.from_numpy(r["island/stat"]), mean[:, :H])
         assert torch.equal(torch.from_numpy(r["island/ll"]), mean[:, H])
+
+
+def test_island_runs_two_collectives_an_iteration(runs):
+    """Under the profiler every iteration of the island fit holds two
+    ``sgmcmc.collective`` spans on each rank: the all-reduces of the
+    statistic and the log-likelihood."""
+    for r in runs.out["shard"]:
+        assert r["fit/island/collectives"].tolist() == [2, 2, 2]
 
 
 def test_small_island_warning(runs):

@@ -11,6 +11,7 @@ z-test, and the distributed SGLD fits (sharded, multinomial, island).
 ``chain`` runs on a 2 x 1 mesh, then the driver's sharded fit under the
 same group.
 """
+import contextlib
 import os
 import sys
 import types
@@ -18,6 +19,7 @@ import warnings
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -125,20 +127,36 @@ def multinomial(inp, rank, group, out):
     out["multinomial/stat"], out["multinomial/ll"] = stat.numpy(), ll.numpy()
 
 
+def collectives_per_iter(prof) -> np.ndarray:
+    """The ``sgmcmc.collective`` spans inside each ``sgmcmc.iter`` span of
+    a profiled run."""
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.name.startswith("sgmcmc.")]
+    return np.array([sum(n == "sgmcmc.collective" and s <= cs and ce <= e
+                         for n, cs, ce in spans)
+                     for name, s, e in sorted(spans, key=lambda v: v[1])
+                     if name == "sgmcmc.iter"])
+
+
 def fits(rank, mesh, group, out):
     """The distributed SGLD fit on the 1 x 2 mesh: sharded systematic
-    (twice, from one seed), sharded multinomial and island; then one
-    island score with its K1 inputs."""
+    (twice, from one seed), sharded multinomial and island (under the
+    profiler: its collectives an iteration); then one island score with
+    its K1 inputs."""
     ys = svm_series()
     for label, kw in (("sharded", {}), ("again", {}),
                       ("multinomial", dict(resampler="multinomial")),
                       ("island", dict(island_fused=True))):
         s = samplers.SVMSampler(observations=ys, device="cpu", seed=5)
-        with warnings.catch_warnings(record=True) as rec:
+        prof = (profile(activities=[ProfilerActivity.CPU])
+                if label == "island" else contextlib.nullcontext())
+        with warnings.catch_warnings(record=True) as rec, prof:
             warnings.simplefilter("always")
             trace, aux = s.fit_scan("SGLD", num_iters=3, num_chains=4,
                                     mesh=mesh, record="all", return_aux=True,
                                     **{**FIT_KW, **kw})
+        if label == "island":
+            out["fit/island/collectives"] = collectives_per_iter(prof)
         out[f"fit/{label}/A"] = trace.A.numpy()
         out[f"fit/{label}/LQinv"] = trace.LQinv_vec.numpy()
         out[f"fit/{label}/aux"] = aux.numpy()
