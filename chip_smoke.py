@@ -262,11 +262,26 @@ Phases (each prints its own line; any failure raises and exits non-zero):
      1e-4) and the LGSSM's sharded score against the Kalman gradient (|z|
      < 5); (d) a 2 x 1 chain mesh, 4096 chains a rank on K1: the gathered
      trace of 8192 chains on both ranks, finite.
+ 29. the unfused smoother's step kernel (``csrc/smoother_step.cuh``) on
+     every body it engages (GARCH optimal at the garch_unfused cell's
+     shape, C=8192, N=1000, W=60, multinomial, and at N=1024; GARCH prior
+     and the SVM at N=1000): beside resample-apply, step by step against
+     the PyTorch step (``make_nemeth_step``, lambda = 1) on the same draws,
+     0 chains whose particles, log-weights, statistics or CDF differ, the
+     log-likelihood within 1e-4 of the PyTorch step's and no farther from
+     float64 sums of the same log-weights; GARCH optimal also at N=4096
+     (1024 chains), past the kernel's staging rows; ``run_buffered_pf(fused_model=...)``
+     against the PyTorch window (W launches of each kernel), and with the
+     ESS gate unchanged by ``fused_model`` (no step kernel launch); the
+     kernel, its plain version, a window step and the PyTorch step timed
+     beside the kernel's byte bound; the cell's fit (``GARCHSampler.fit_scan``, 10 iterations:
+     600 launches of resample-apply and of the step kernel, none of K1).
 The last three lines are the kernel report (JSON), the card's
 ``nvidia-smi`` name and power limit, and the result (JSON).
 Exits non-zero without a result when no CUDA device is available.
 """
 import json
+import math
 import subprocess
 import sys
 import time
@@ -3391,6 +3406,285 @@ def stepper_phase(dev, card, sizes=STEPPER_SIZES):
     return k1
 
 
+# Phase 29's sizes: the garch_unfused cell's shape (C=8192, N=1000, W=60)
+# and N=1024 on GARCH optimal, N=1000 on the other bodies, N=4096 on C / 8
+# chains; the fit of the cell's call (10 iterations).
+STEP_SIZES = dict(C=C_BENCH, Ns=(1000, 1024), wide_N=4096, fit_iters=10,
+                  T=T)
+
+
+def _step_inputs(gen, body, C, n, W_s, ys, dev):
+    """Chain parameters, buffered windows of ``ys`` and draws for phase
+    29: a multinomial window of ``W_s`` steps over ``n`` particles."""
+    from sgmcmc_tpu_torch.models import garch, svm
+    from sgmcmc_tpu_torch.ops import buffered, subsequence
+    u = torch.rand((C, 4), generator=gen, device=dev)
+    if body == "svm":
+        params = svm.SVMParams(A=(0.5 + 0.45 * u[:, 0]).reshape(C, 1, 1),
+                               LQinv_vec=(0.3 + 1.2 * u[:, 1:2]) ** -0.5,
+                               LRinv_vec=(0.5 + 1.5 * u[:, 2:3]) ** -0.5)
+    else:
+        params = garch.GARCHParams(
+            log_mu=torch.log(0.1 + 0.3 * u[:, 0:1]),
+            logit_phi=torch.logit(0.5 + 0.4 * u[:, 1:2]),
+            logit_lambduh=torch.logit(0.2 + 0.6 * u[:, 2:3]),
+            LRinv_vec=(0.5 + 1.5 * u[:, 3:4]) ** -0.5)
+    T_len = ys.shape[0]
+    Sw = W_s - 2 * B
+    start = subsequence.sample_start(gen, Sw, T_len, C, device=dev)
+    win = subsequence.buffered_window(start, Sw, B, T_len)
+    obs = subsequence.slice_window(ys, win.window_start, W_s)
+    step_w, in_w = buffered.window_weights(win.t1, win.tL, win.weights, W_s)
+    z0 = torch.randn((C, 1, n), generator=gen, device=dev)
+    normals = torch.randn((C, W_s, 1, n), generator=gen, device=dev)
+    u_res = torch.rand((C, W_s, n), generator=gen, device=dev)
+    return params, obs, step_w, in_w, z0, normals, u_res
+
+
+def smoother_step_phase(dev, card, sizes=STEP_SIZES):
+    """Phase 29 on ``dev`` (the CPU for a rehearsal at small ``sizes``, on
+    the kernel's plain version): the unfused smoother's step kernel against
+    the PyTorch step, step by step and bit for bit, on every body it
+    engages; the window on ``run_buffered_pf``'s route; the garch_unfused
+    cell's fit with its launches; the kernel timed beside its bound.
+    Returns the kernel's report numbers."""
+    from sgmcmc_tpu_torch.inference import samplers
+    from sgmcmc_tpu_torch.models import garch, svm
+    from sgmcmc_tpu_torch.ops import buffered
+    from sgmcmc_tpu_torch.ops.cuda import fused_pf, resample
+    from sgmcmc_tpu_torch.ops.cuda import smoother_step as ss
+    from sgmcmc_tpu_torch.ops.smoothers import (PFCarry, PFStepInput,
+                                                make_nemeth_step)
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(29)
+    C, T_len = sizes["C"], sizes["T"]
+    truth = garch.from_alpha_beta_gamma(0.1, 0.4, 0.3, 0.5, device=dev)
+    ys_g, _ = garch.generate_data(gen, truth, T_len)
+    ys_s, _ = svm.generate_data(gen, svm.from_scalars(0.9, 0.5, 1.0,
+                                                      device=dev), T_len)
+    models = {"garch_optimal": (garch.OPTIMAL_KERNEL, garch.FUSED, ys_g),
+              "garch_prior": (garch.PRIOR_KERNEL, garch.FUSED_PRIOR, ys_g),
+              "svm": (svm.KERNEL, svm.FUSED, ys_s)}
+    stat_fns = {"garch_optimal": garch.grad_statistic,
+                "garch_prior": garch.grad_statistic,
+                "svm": svm.grad_statistic}
+    cases = [("garch_optimal", n, C) for n in sizes["Ns"]] + [
+        ("garch_prior", sizes["Ns"][0], C), ("svm", sizes["Ns"][0], C),
+        ("garch_optimal", sizes["wide_N"], C // 8)]
+    out = {"bodies": [], "checks": {}}
+
+    def differ(a, b):
+        """Chains whose rows differ anywhere (NaN equal to NaN)."""
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        return ~same.reshape(a.shape[0], -1).all(1)
+
+    def abs_err(a, b):
+        """Largest |a - b| (0 where equal, infinities and NaN included)."""
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        d = (a.double() - b.double()).abs().masked_fill(same, 0.0)
+        return float(d.max())
+
+    for body, n_part, C in cases:
+        kernel, model, ys = models[body]
+        params, obs, step_w, in_w, z0, normals, u_res = _step_inputs(
+            gen, body, C, n_part, W, ys, dev)
+        H, D = model.n_stat, model.n_state
+        x0 = buffered._initial_particles(kernel, params, z0, 0.0, 1.0,
+                                         torch.float32, dev)
+        step = make_nemeth_step(kernel, stat_fns[body], 1.0, "multinomial")
+        carry = PFCarry(x0, torch.zeros((C, n_part), device=dev),
+                        torch.zeros((C, n_part, H), device=dev),
+                        torch.zeros((C,), device=dev))
+        buf = torch.cat([x0, torch.zeros((C, n_part, H), device=dev)], -1)
+        log_w = torch.zeros((C, n_part), device=dev)
+        cdf = resample.weights_cdf(log_w)
+        ll = torch.zeros((C,), device=dev)
+        pvec = model.pack_params(params).contiguous()
+        bad = torch.zeros((C,), dtype=torch.bool, device=dev)
+        # the log-likelihood in float64 from the same log-weights: where
+        # the two float32 sums part, which is nearer
+        ll64 = torch.zeros((C,), dtype=torch.float64, device=dev)
+        ll_gap = gap64 = aten64 = err = ll_err = 0.0
+
+        def rel(a, b):
+            return float(((a.double() - b.double()).abs()
+                          / b.double().abs().clamp(min=1)).max())
+        for t in range(W):
+            carry = step(params, carry, PFStepInput(
+                z=normals[:, t].transpose(1, 2), u=u_res[:, t],
+                y=obs[:, t], weight=step_w[:, t], in_window=in_w[:, t], t=t))
+            rows = resample.resample_apply(u_res[:, t].contiguous(), cdf,
+                                           buf)
+            ss.smoother_step(model, pvec, rows, normals[:, t], obs[:, t, 0],
+                             step_w[:, t], in_w[:, t], buf, log_w, cdf, ll)
+            bad |= differ(buf[..., :D], carry.particles)
+            bad |= differ(buf[..., D:], carry.statistics)
+            bad |= differ(log_w, carry.log_weights)
+            cdf_ref = resample.weights_cdf(carry.log_weights)
+            bad |= differ(cdf, cdf_ref)
+            err = max(err, abs_err(buf[..., :D], carry.particles),
+                      abs_err(buf[..., D:], carry.statistics),
+                      abs_err(log_w, carry.log_weights),
+                      abs_err(cdf, cdf_ref))
+            ll_err = max(ll_err, abs_err(ll, carry.loglik))
+            ll64 = ll64 + (step_w[:, t] * in_w[:, t]).double() * (
+                torch.logsumexp(carry.log_weights.double(), -1)
+                - math.log(n_part))
+            ll_gap = max(ll_gap, rel(ll, carry.loglik))
+            gap64 = max(gap64, rel(ll, ll64))
+            aten64 = max(aten64, rel(carry.loglik, ll64))
+        n_bad = int(bad.sum())
+        check_finite(f"the step kernel's carry ({body}, N={n_part})", buf,
+                     log_w, ll)
+        phase("29 check", f"{body} C={C} N={n_part} W={W} multinomial: "
+              f"chains whose particles, log-weights, statistics or CDF "
+              f"differ from the PyTorch step at any step: {n_bad}; "
+              f"largest |kernel - PyTorch step| over particles, "
+              f"log-weights, statistics and CDF {err!r}, log-likelihood "
+              f"{ll_err!r}; "
+              f"log-likelihood gap |ll - ll_ref| / max(|ll_ref|, 1) "
+              f"{ll_gap:.3e}; against float64 sums of the same "
+              f"log-weights: kernel {gap64:.3e}, PyTorch step "
+              f"{aten64:.3e}")
+        if n_bad:
+            raise AssertionError(f"the step kernel differs from the PyTorch "
+                                 f"step ({body}, N={n_part}) in {n_bad} "
+                                 f"chains")
+        # both sum the running log-likelihood in float32, whose rounding
+        # sets their distance from the float64 sums (most where |ll| is
+        # near 1); the kernel must be no farther than the PyTorch step,
+        # and within the garch_unfused cell's loglik_max of it
+        if not (gap64 <= aten64 + 1e-6 and ll_gap <= 1e-4):
+            raise AssertionError(f"log-likelihood gaps {ll_gap}, {gap64}")
+        out["checks"][f"{body}_{n_part}"] = dict(
+            chains_differ=n_bad, max_abs_err=max(err, ll_err),
+            loglik_gap=ll_gap,
+            loglik_gap_f64=gap64, pytorch_gap_f64=aten64)
+        out["bodies"].append(body)
+
+        # the window on run_buffered_pf's route against the PyTorch window
+        args = (kernel, stat_fns[body], params, obs)
+        kw = dict(z0=z0, normals=normals, u=u_res, statistic_dim=H,
+                  step_weights=step_w, in_window=in_w)
+        ss.smoother_step.launches = resample.resample_apply.launches = 0
+        got = buffered.run_buffered_pf(*args, fused_model=model, **kw)
+        launches = (ss.smoother_step.launches,
+                    resample.resample_apply.launches)
+        want = buffered.run_buffered_pf(*args, **kw)
+        n_stat = int(differ(got.mean_statistic, want.mean_statistic).sum())
+        w_gap = rel(got.loglikelihood, want.loglikelihood)
+        phase("29 window", f"{body} N={n_part}: run_buffered_pf(fused_model"
+              f"=...) (step kernel, resample-apply) launches {launches}; "
+              f"mean statistic differs from the PyTorch window in {n_stat} "
+              f"chains; log-likelihood gap {w_gap:.3e}")
+        want_launches = (W, W) if cuda else (0, 0)
+        if n_stat or not w_gap <= 1e-4 or launches != want_launches:
+            raise AssertionError(f"run_buffered_pf's route ({body}, "
+                                 f"N={n_part}): {n_stat} chains, gap "
+                                 f"{w_gap}, launches {launches}")
+        if body == "garch_optimal" and n_part == sizes["Ns"][0]:
+            # the ESS gate keeps the PyTorch step, fused_model or not
+            ss.smoother_step.launches = 0
+            got = buffered.run_buffered_pf(*args, fused_model=model,
+                                           ess_threshold=0.5, **kw)
+            gated = ss.smoother_step.launches
+            want = buffered.run_buffered_pf(*args, ess_threshold=0.5, **kw)
+            n_gate = sum(int(differ(a, b).sum()) for a, b in zip(got, want))
+            phase("29 window", f"{body} N={n_part} with the ESS gate: step "
+                  f"kernel launches {gated}; chains that differ from the "
+                  f"call without fused_model {n_gate}")
+            if gated or n_gate:
+                raise AssertionError(f"the ESS gate's route: {gated} "
+                                     f"launches, {n_gate} chains differ")
+        del carry, buf, got, want, rows
+
+        if body == "garch_optimal" and n_part in sizes["Ns"]:
+            # the kernel alone, a window step, and the PyTorch step timed
+            K = D + H
+            vr = resample.resample_apply(u_res[:, 0].contiguous(), cdf,
+                                         torch.cat([x0, torch.zeros(
+                                             (C, n_part, H), device=dev)],
+                                             -1))
+            nxt = torch.empty_like(vr)
+
+            def kernel_call():
+                ss.smoother_step(model, pvec, vr, normals[:, 1],
+                                 obs[:, 1, 0], step_w[:, 1], in_w[:, 1], nxt,
+                                 log_w, cdf, ll)
+
+            def window_step():
+                rows = resample.resample_apply(u_res[:, 1].contiguous(), cdf,
+                                               nxt)
+                ss.smoother_step(model, pvec, rows, normals[:, 1],
+                                 obs[:, 1, 0], step_w[:, 1], in_w[:, 1], nxt,
+                                 log_w, cdf, ll)
+
+            c0 = PFCarry(x0, log_w, vr[..., D:].contiguous(), ll)
+            inp = PFStepInput(z=normals[:, 1].transpose(1, 2),
+                              u=u_res[:, 1], y=obs[:, 1], weight=step_w[:, 1],
+                              in_window=in_w[:, 1], t=1)
+            nbytes = 4 * C * n_part * (2 * K + model.noise_dims + 2)
+            bound, by = bound_ms(nbytes, 0)
+            k_ms = w_ms = a_ms = p_ms = float("nan")
+            if cuda:
+                k_ms = graph_ms(kernel_call)
+                w_ms = graph_ms(window_step)
+                a_ms = cuda_ms(lambda: step(params, c0, inp), 10)
+                p_ms = cuda_ms(lambda: ss.smoother_step_reference(
+                    model, pvec, vr, normals[:, 1], obs[:, 1, 0],
+                    step_w[:, 1], in_w[:, 1], nxt, log_w, cdf, ll), 10)
+            phase("29 time", f"garch_optimal C={C} N={n_part}: step kernel "
+                  f"{k_ms:.4f} ms (device time in a CUDA graph), bound "
+                  f"{bound:.4f} ms by {by} ({nbytes / 1e9:.3f} GB, "
+                  f"{100 * bound / k_ms:.1f}%); its plain version "
+                  f"{p_ms:.4f} ms; a window step (positions' copy, "
+                  f"resample-apply, step kernel) {w_ms:.4f} ms; the "
+                  f"PyTorch step (with its resampling) {a_ms:.4f} ms "
+                  f"({card})")
+            out[f"time_{n_part}"] = dict(ms=k_ms, plain_ms=p_ms,
+                                         bound_ms=bound, bound_by=by,
+                                         window_step_ms=w_ms,
+                                         pytorch_step_ms=a_ms)
+            del vr, nxt, c0, inp
+        del params, obs, step_w, in_w, z0, normals, u_res, x0, log_w, cdf, ll
+        del args, kw
+
+    # the garch_unfused cell's call: GARCH optimal, multinomial, N=1000
+    C, n_fit, it = sizes["C"], sizes["Ns"][0], sizes["fit_iters"]
+    smp = samplers.GARCHSampler(observations=ys_g, device=dev, seed=3)
+    kw = dict(N=n_fit, subsequence_length=S, buffer_length=B,
+              resampler="multinomial", rng="host")
+    smp.parameters = garch.from_alpha_beta_gamma(0.2, 0.3, 0.3, 1.0,
+                                                 device=dev)
+    smp.fit_scan("SGLD", num_iters=2, num_chains=C, record="none", **kw)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ss.smoother_step.launches = 0
+    reset_counts(fused_pf, resample)
+    t0 = time.perf_counter()
+    trace = smp.fit_scan("SGLD", num_iters=it, num_chains=C, record="all",
+                         **kw)
+    float(trace.log_mu[:, -1].sum())
+    dt = time.perf_counter() - t0
+    launches = (fused_pf.fused_window.launches,
+                resample.resample_apply.launches, ss.smoother_step.launches)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    check_finite("the GARCH fit on the step kernel's route", trace.log_mu)
+    phase("29 fit", f"GARCHSampler.fit_scan SGLD multinomial C={C} "
+          f"N={n_fit}: {it} iterations in {dt:.3f} s, {C * it / dt:.1f} "
+          f"steps/s; (K1, resample-apply, step kernel) launches {launches}; "
+          f"peak {peak / 2 ** 30:.3f} GiB ({card})")
+    want = (0, it * W, it * W) if cuda else (0, 0, 0)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    out["launches"] = launches[2]
+    out["bodies"] = sorted(set(out["bodies"]))
+    phase("29 seconds", f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3425,7 +3719,6 @@ def main():
               and "0 bytes spill stores, 0 bytes spill loads" not in ln]
     phase("2 build", f"functions that spill registers: {len(spills)}"
           + "".join(f" | {ln}" for ln in spills))
-
     # 3. K1 vs plain version on the card
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -4451,6 +4744,9 @@ def main():
     # island route (K1 at N / 2 a rank), the sharded smoother, a chain mesh
     mesh = mesh_phase(dev, card)
 
+    # 29. the unfused smoother's step kernel beside resample-apply
+    step_k = smoother_step_phase(dev, card)
+
     main_shape = ra_times["K2b"]
     k1_tpu = "sgmcmc_tpu/ops/pallas/fused_pf.py:121"
 
@@ -4530,6 +4826,17 @@ def main():
                      ":232 (K2b), :31 (K3)",
          "launches": ra_launches[1024], "max_abs_err": ra_err,
          **main_shape},
+        # the unfused smoother's window step beside resample-apply (no TPU
+        # kernel: the PyTorch step of ops/smoothers.py), at the
+        # garch_unfused cell's shape
+        {"name": "smoother_step_garch_optimal", "route": "cuda",
+         "source": "sgmcmc_tpu_torch/csrc/smoother_step.cuh + "
+                   "smoother_step.cu + garch_body.cuh",
+         "replaces": "sgmcmc_tpu_torch/ops/smoothers.py make_nemeth_step "
+                     "(lambduh = 1) after its resampling",
+         "launches": step_k["launches"], "max_abs_err":
+             step_k["checks"]["garch_optimal_1000"]["max_abs_err"],
+         "bodies": step_k["bodies"], **step_k["time_1000"]},
         # the same kernel on the PaRIS paths, at their shapes (K = 1)
         *[{"name": f"resample_apply_{label}", "route": "cuda",
            "source": "sgmcmc_tpu_torch/csrc/resample_apply.cu",

@@ -16,7 +16,9 @@ the ESS gate and the valid gate), the resample mode is one of
 ``FUSED_RESAMPLE_MODES`` (the default ``"auto"`` is) and one block of the
 window fits the card's shared memory; every other configuration, and
 every configuration on the CPU, runs ``run_buffered_pf``, whose window
-steps launch the resample-apply kernel for CUDA tensors.  Unlike the JAX
+steps launch the resample-apply kernel for CUDA tensors (and, for the
+Poyiadjis O(N) smoother of the SVM and GARCH bodies, the step kernel of
+``ops/cuda/smoother_step.py`` beside it).  Unlike the JAX
 package's rule, any particle count takes the fused route (its
 ``n_particles % 8 == 0`` is a TPU layout constraint); the two routes
 agree in law.
@@ -257,7 +259,7 @@ class PFScore(nn.Module):
                 resample_mode=cfg.resample_mode, lambduh=cfg.lambduh,
                 n_tilde=cfg.n_tilde, ess_threshold=cfg.ess_threshold,
                 bw_chunk=cfg.bw_chunk, step_valid=valid, v=draws.v,
-                generator=generator)
+                generator=generator, fused_model=self.fused_model)
             return out.mean_statistic, out.loglikelihood
 
     def forward(self, generator, params, observations: torch.Tensor,

@@ -10,6 +10,16 @@ one launch.  Randomness is an input, in the fused kernel's layout:
 stratified resampling, and PaRIS's backward uniforms ``v [C, W, N,
 n_tilde]`` (or its backward indices ``J`` of that shape).
 
+On CUDA float32 tensors the Poyiadjis O(N) smoother of a model with a
+fused body in ``ops/cuda/smoother_step.STEP_BODIES`` (``fused_model``),
+without the ESS gate, ``step_valid`` or the predict modes, keeps its carry
+as one ``[C, N, D + H]`` buffer and runs each window step as two kernels:
+resample-apply on the buffer, then the step kernel of
+``ops/cuda/smoother_step.py`` (proposal, reweighting, statistic, the next
+step's CDF and the log-likelihood).  It gives the same carry and CDF, bit
+for bit, as the PyTorch step of ``ops/smoothers.py`` that every other
+configuration runs; only the log-likelihood's sum takes another order.
+
 The predict surface runs three more modes: ``elementwise`` (step t's
 statistic in its own slot of a ``[window_length * dim]`` statistic),
 ``fixed_lag`` (slot t - lag read at step t) and ``save_all`` (every
@@ -24,7 +34,10 @@ import torch
 
 from ..models.base import ParticleKernel, StatisticFn
 from ..utils.profiling import span
-from .resampling import normalize_log_weights
+from .cuda.resample import (check_mode, resample_apply,
+                            resample_positions, weights_cdf)
+from .cuda.smoother_step import STEP_BODIES, smoother_step
+from .resampling import get_resampler, normalize_log_weights
 from .smoothers import (ElementwiseSlots, PFCarry, PFStepInput,
                         make_smoother_step)
 
@@ -76,6 +89,7 @@ def run_buffered_pf(
         v: torch.Tensor | None = None,              # [C, W, N, n_tilde]
         J: torch.Tensor | None = None,              # [C, W, N, n_tilde]
         generator: torch.Generator | None = None,   # paris_ar's rounds
+        fused_model=None,                           # FusedModel of kernel
 ) -> PFOutput:
     """Run ``W`` steps of a buffered particle smoother over each chain's
     window.  ``step_weights`` carries both the buffering (zero outside
@@ -85,7 +99,9 @@ def run_buffered_pf(
     where it is not positive: the padded tails of multi-sequence
     windows.  PaRIS takes its backward uniforms ``v`` (or indices ``J``)
     and, for ``paris_ar``, the ``generator`` of its accept-reject
-    rounds.
+    rounds.  ``fused_model``, the fused-window bundle of ``kernel`` and
+    ``stat_fn``, lets the step kernel run the window where the module
+    docstring says.
 
     ``elementwise`` (with ``window_length`` L) keeps step t's statistic in
     slot ``t - t1`` of a ``[C, (N,) L * statistic_dim]`` statistic, t1
@@ -113,6 +129,20 @@ def run_buffered_pf(
             raise ValueError("fixed_lag requires an elementwise smoother")
         if save_all:
             raise ValueError("fixed_lag and save_all are exclusive")
+    if (fused_model is not None and fused_model.body in STEP_BODIES
+            and smoother == "poyiadjis_N" and ess_threshold is None
+            and step_valid is None and not elementwise and not save_all
+            and fixed_lag is None and dev.type == "cuda"
+            and all(x.dtype == torch.float32
+                    for x in (observations, z0, normals, u, step_weights,
+                              in_window))):
+        return run_step_kernel(fused_model, kernel, params, observations,
+                               z0=z0, normals=normals, u=u,
+                               statistic_dim=statistic_dim,
+                               step_weights=step_weights,
+                               in_window=in_window, prior_mean=prior_mean,
+                               prior_var=prior_var, resampler=resampler,
+                               resample_mode=resample_mode)
     step = make_smoother_step(smoother, kernel, stat_fn, resampler,
                               lambduh=lambduh, n_tilde=n_tilde,
                               logsumexp_mode=logsumexp_mode,
@@ -121,11 +151,8 @@ def run_buffered_pf(
                               slots=slots)
     D = kernel.state_dim
     N = z0.shape[-1]
-    pm = torch.as_tensor(prior_mean, dtype=dtype, device=dev)
-    pv = torch.as_tensor(prior_var, dtype=dtype, device=dev)
-    if pv.dim() < 3:            # a variance per chain (or one for all)
-        pm, pv = pm.reshape(-1), pv.reshape(-1)
-    x0 = kernel.sample_x0(params, z0[:, :D].transpose(1, 2), pm, pv)
+    x0 = _initial_particles(kernel, params, z0, prior_mean, prior_var,
+                            dtype, dev)
     stats_shape = (C, H) if smoother == "filter" else (C, N, H)
     carry = PFCarry(x0, torch.zeros((C, N), dtype=dtype, device=dev),
                     torch.zeros(stats_shape, dtype=dtype, device=dev),
@@ -171,6 +198,56 @@ def run_buffered_pf(
     if save_all:
         return out, PFCarry(*[torch.stack(x) for x in zip(*saved)])
     return out
+
+
+def _initial_particles(kernel: ParticleKernel, params, z0, prior_mean,
+                       prior_var, dtype, dev) -> torch.Tensor:
+    """The initial particles [C, N, D] from the normals ``z0 [C, Z, N]``."""
+    pm = torch.as_tensor(prior_mean, dtype=dtype, device=dev)
+    pv = torch.as_tensor(prior_var, dtype=dtype, device=dev)
+    if pv.dim() < 3:            # a variance per chain (or one for all)
+        pm, pv = pm.reshape(-1), pv.reshape(-1)
+    D = kernel.state_dim
+    return kernel.sample_x0(params, z0[:, :D].transpose(1, 2), pm, pv)
+
+
+def run_step_kernel(fused_model, kernel: ParticleKernel, params,
+                    observations: torch.Tensor, *, z0: torch.Tensor,
+                    normals: torch.Tensor, u: torch.Tensor,
+                    statistic_dim: int, step_weights: torch.Tensor,
+                    in_window: torch.Tensor, prior_mean=0.0, prior_var=1.0,
+                    resampler: str = "multinomial",
+                    resample_mode: str = "auto") -> PFOutput:
+    """The Poyiadjis O(N) window on one ``[C, N, D + H]`` carry buffer:
+    each step resample-apply on the buffer at the previous step's CDF, then
+    :func:`~.cuda.smoother_step.smoother_step` back into it (the kernel on
+    CUDA tensors, its plain version on CPU tensors).  The arguments are
+    :func:`run_buffered_pf`'s, with the step weights and in-window flags
+    given; ``run_buffered_pf`` takes this route where its docstring
+    says."""
+    get_resampler(resampler)
+    check_mode(resample_mode)
+    C, W = observations.shape[:2]
+    D, N = kernel.state_dim, z0.shape[-1]
+    dtype, dev = observations.dtype, observations.device
+    carry = torch.zeros((C, N, D + statistic_dim), dtype=dtype, device=dev)
+    carry[..., :D] = _initial_particles(kernel, params, z0, prior_mean,
+                                        prior_var, dtype, dev)
+    log_w = torch.zeros((C, N), dtype=dtype, device=dev)
+    cdf = weights_cdf(log_w)
+    loglik = torch.zeros((C,), dtype=dtype, device=dev)
+    pvec = fused_model.pack_params(params).contiguous()
+    for t in range(W):
+        with span("sgmcmc.smoother.step"):
+            pos = resample_positions(resampler, u[:, t], N).contiguous()
+            rows = resample_apply(pos, cdf, carry)
+            smoother_step(fused_model, pvec, rows, normals[:, t],
+                          observations[:, t, 0], step_weights[:, t],
+                          in_window[:, t], carry, log_w, cdf, loglik)
+    stats = carry[..., D:]
+    return PFOutput(statistics=stats, log_weights=log_w,
+                    particles=carry[..., :D], loglikelihood=loglik,
+                    mean_statistic=average_statistic(stats, log_w))
 
 
 def window_weights(t1: torch.Tensor, tL: torch.Tensor,

@@ -169,7 +169,8 @@ def test_library_builds_every_kernel_source():
         "cuda_error.cu", "fused_window_garch_optimal.cu",
         "fused_window_garch_prior.cu", "fused_window_lgssm_optimal.cu",
         "fused_window_lgssm_prior.cu", "fused_window_svjm.cu",
-        "fused_window_svm.cu", "philox_normals.cu", "resample_apply.cu"]
+        "fused_window_svm.cu", "philox_normals.cu", "resample_apply.cu",
+        "smoother_step.cu"]
     assert build.library_path().parent == build.BUILD_DIR
     pyproject = Path(__file__).resolve().parents[1] / "pyproject.toml"
     globs = tomllib.loads(pyproject.read_text())[
