@@ -15,7 +15,12 @@ whose end-to-end metrics are printed too), then the compared numbers of
   taken over the rest) in the port's place;
 * ``reorder``: the reference in another summation order (the other
   route's order of the filter's sums; on the island route the islands
-  averaged from the last rank), a sound variant, in the port's place;
+  averaged from the last rank; under PaRIS the log-likelihood and the
+  final weighted mean in the fused window's order, the mean in float64),
+  a sound variant, in the port's place;
+* ``one_backward``, ``uniform_backward`` (PaRIS cells): the reference
+  with one backward draw a particle in place of ``n_tilde``, or with its
+  backward indices drawn uniformly, ignoring the backward weights;
 * ``own_island`` (island cells): the reference keeping rank 0's island
   only, the exchange between the cards left out;
 * ``float64`` (one-card cells): the reference in float64, a sound
@@ -115,6 +120,9 @@ def readings(cell, inputs, device, control: bool) -> dict:
         variants["own_island"] = dict(fault="own_island")
     else:
         variants["float64"] = dict(dtype=torch.float64)
+    if cell.config["pf"] == "paris":
+        for fault in ("one_backward", "uniform_backward"):
+            variants[fault] = dict(fault=fault)
     for name, kw in variants.items():
         rec[name] = check.in_place(names, last, ref,
                                    check.reference_outputs(*args, **kw))

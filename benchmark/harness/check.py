@@ -41,6 +41,8 @@ import torch
 
 from benchmark.reference import fit as ref_fit
 
+from . import spec
+
 NUMBERS = ("loglik_p50", "loglik_max", "param_p50", "param_max",
            "start_loglik_max")
 
@@ -60,8 +62,13 @@ class CallOut:
 
 
 def plan_of(config: dict, workload: dict, iters: int | None = None):
+    """The reference's plan of one call: the configuration's sizes and
+    smoother (``pf``, ``n_tilde``, default 2 as the port's), the model's
+    normals a particle (its reference's ``NOISE_DIM``) and the cell's
+    call."""
     P = int(config.get("particle_devices", 1))
     call = workload["call"]
+    ref_model = spec.reference_model(config["reference"])
     return ref_fit.CallPlan(
         T=int(config["T"]), S=int(config["S"]), B=int(config["B"]),
         N=int(config["N"]) // P,
@@ -70,7 +77,9 @@ def plan_of(config: dict, workload: dict, iters: int | None = None):
         resampler=call.get("resampler", "multinomial"),
         kernel_rng=(workload["route"] == "k1"
                     and call.get("rng", "host") == "kernel"),
-        route=workload["route"], islands=P)
+        route=workload["route"], islands=P, pf=config["pf"],
+        n_tilde=int(config.get("n_tilde", 2)),
+        noise_dim=int(ref_model.NOISE_DIM))
 
 
 def _finite(x: torch.Tensor) -> torch.Tensor:

@@ -22,10 +22,12 @@ def sub_seeds(seed: int) -> dict:
 
 def series(ref_model, config: dict, seed: int, device) -> torch.Tensor:
     """The observed series ``[T]`` float32 of the configuration's true
-    parameters."""
+    parameters, from the model's ``SERIES_NORMALS`` normals a time step
+    (2 where its reference does not say)."""
     T = int(config["T"])
     gen = torch.Generator(device=device).manual_seed(sub_seeds(seed)["series"])
-    z = torch.randn((2, T + 1), generator=gen, dtype=torch.float64,
+    k = int(getattr(ref_model, "SERIES_NORMALS", 2))
+    z = torch.randn((k, T + 1), generator=gen, dtype=torch.float64,
                     device=device).cpu().numpy()
     ys = ref_model.simulate(config["truth"], z)
     return torch.as_tensor(ys, dtype=torch.float32, device=device)

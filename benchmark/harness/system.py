@@ -45,8 +45,9 @@ class System:
                        subsequence_length=int(config["S"]),
                        buffer_length=int(config["B"]), pf=config["pf"],
                        **workload["call"])
-        if "kernel" in config:
-            self.kw["kernel"] = config["kernel"]
+        for key in ("kernel", "n_tilde"):
+            if key in config:
+                self.kw[key] = config[key]
         if int(config.get("particle_devices", 1)) > 1:
             self.kw.update(n_particle_devices=int(config["particle_devices"]),
                            island_fused=bool(config["island_fused"]))

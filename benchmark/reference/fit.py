@@ -8,16 +8,20 @@ adds the prior's score, scales by 1 / T, and takes the Langevin step
 ``theta + eps * grad + sqrt(2 eps) * sqrt(1 / T) * noise`` followed by the
 model's projection (Welling and Teh 2011; Aicher et al. 2019).
 
+The particle smoother is the configuration's ``pf``: Poyiadjis O(N)
+(``pf.py``) or PaRIS (``paris.py``); any other raises.
+
 Randomness is replayed, not taken from the program: the reference holds a
 ``torch.Generator`` set to the seed's stream at the call's start and makes
-the draws the call makes, in its order and shapes (``_filter_draws``), and it
-computes the initial-state and proposal normals of ``rng="kernel"`` with
-the frozen Philox copy of ``philox.py``.  The island route (P particle
-ranks, each its own filter of N / P particles, the statistic and
-log-likelihood averaged over the ranks) derives each rank's generator
-seed from one draw of the shared stream as the parallel layer documents
-(numpy's ``SeedSequence`` of (draw, chain block, rank), shifted right by
-one).
+the draws the call makes, in its order and shapes (``_filter_draws``: Z
+normals a particle, the model's ``NOISE_DIM``, and PaRIS's backward
+uniforms), and it computes the initial-state and proposal normals of
+``rng="kernel"`` with the frozen Philox copy of ``philox.py``.  The
+island route (P particle ranks, each its own filter of N / P particles,
+the statistic and log-likelihood averaged over the ranks) derives each
+rank's generator seed from one draw of the shared stream as the parallel
+layer documents (numpy's ``SeedSequence`` of (draw, chain block, rank),
+shifted right by one).
 """
 from __future__ import annotations
 
@@ -27,7 +31,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import philox, pf
+from . import paris, pf, philox
+
+SMOOTHERS = ("poyiadjis_N", "paris")
 
 
 @dataclass(frozen=True)
@@ -43,12 +49,18 @@ class CallPlan:
     kernel_rng: bool            # normals from per-chain Philox seeds
     route: str = "k1"           # "k1" (fused window) | "unfused"
     islands: int = 1            # P particle ranks of the island route
+    pf: str = "poyiadjis_N"     # the smoother: one of SMOOTHERS
+    n_tilde: int = 2            # PaRIS's backward draws a particle
+    noise_dim: int = 1          # Z, the model's normals a particle a step
     # a planted variant, for the check's own tests and readings: the
     # filter runs on the first half of its draws only ("half"), the island
-    # route keeps rank 0's island ("own_island"), or the same arithmetic
-    # runs in another summation order ("reorder": the islands averaged
-    # from the last rank on the island route, else the other route's
-    # order of the filter's sums), a sound variant
+    # route keeps rank 0's island ("own_island"), PaRIS takes one backward
+    # draw a particle ("one_backward") or draws its backward indices
+    # uniformly, ignoring the backward weights ("uniform_backward"), or the
+    # same arithmetic runs in another summation order ("reorder": the
+    # islands averaged from the last rank on the island route, PaRIS's
+    # final mean and log-likelihood in the fused window's order, else the
+    # other route's order of the filter's sums), a sound variant
     fault: str | None = None
 
     @property
@@ -84,22 +96,31 @@ def window_layout(start, plan: CallPlan, observations):
 
 
 def _filter_draws(gen, plan: CallPlan, C: int, device):
-    """The draws of one filter a step, in the program's order: Philox seeds
-    or (initial, proposal) normals, then the resampling uniforms."""
-    N, W = plan.N, plan.W
+    """The draws of one filter a window, in the program's order and shapes
+    (``PFScore._noise``): Philox seeds, or the initial normals ``[C, Z,
+    N]`` and then the proposal normals ``[C, W, Z, N]``; then the
+    resampling uniforms; then, for PaRIS, the backward uniforms ``[C, W,
+    N, n_tilde]``.  Returns ``(z0, normals, positions, backward)``: the Z
+    initial normals ``[C, N]``, ``normals(t)`` the step's Z ``[C, N]``,
+    ``positions(t, j)`` and ``backward(t)`` ``[C, N, n_tilde]`` (None
+    without PaRIS)."""
+    N, W, Z = plan.N, plan.W, plan.noise_dim
     if plan.kernel_rng:
         seeds = torch.randint(-2 ** 63, 2 ** 63 - 1, (C,), generator=gen,
                               dtype=torch.int64, device=device)
-        z0 = philox.normals(seeds, 0, 0, N, philox.STREAM_INIT)
+        z0 = [philox.normals(seeds, 0, q, N, philox.STREAM_INIT)
+              for q in range(Z)]
 
         def normals(t):
-            return [philox.normals(seeds, t, 0, N, philox.STREAM_PROPOSAL)]
+            return [philox.normals(seeds, t, q, N, philox.STREAM_PROPOSAL)
+                    for q in range(Z)]
     else:
-        z0 = torch.randn((C, 1, N), generator=gen, device=device)[:, 0]
-        prop = torch.randn((C, W, 1, N), generator=gen, device=device)
+        z0 = list(torch.randn((C, Z, N), generator=gen,
+                              device=device).unbind(1))
+        prop = torch.randn((C, W, Z, N), generator=gen, device=device)
 
         def normals(t):
-            return [prop[:, t, 0]]
+            return list(prop[:, t].unbind(1))
     if plan.resampler == "systematic":
         xi = torch.rand((C, W), generator=gen, device=device)
 
@@ -116,16 +137,25 @@ def _filter_draws(gen, plan: CallPlan, C: int, device):
             return u[:, t]
     else:
         raise ValueError(f"no reference for resampler {plan.resampler!r}")
-    return z0, normals, positions
+    backward = None
+    if plan.pf == "paris":
+        v = torch.rand((C, W, N, plan.n_tilde), generator=gen, device=device)
+
+        def backward(t):
+            return v[:, t]
+    return z0, normals, positions, backward
 
 
 def _score(model, plan, p, windows, step_w, gen, C, dtype, device):
     """One filter's (statistic, loglik) on its own draws from ``gen``."""
-    z0, normals, positions = _filter_draws(gen, plan, C, device)
+    if plan.pf not in SMOOTHERS:
+        raise ValueError(f"no reference for the smoother {plan.pf!r}")
+    z0, normals, positions, backward = _filter_draws(gen, plan, C, device)
     if plan.fault == "half":
         n = plan.N // 2
-        z0 = z0[:, :n]
+        z0 = [z[:, :n] for z in z0]
         full_normals, full_positions = normals, positions
+        full_backward = backward
 
         def normals(t):
             return [z[:, :n] for z in full_normals(t)]
@@ -134,8 +164,22 @@ def _score(model, plan, p, windows, step_w, gen, C, dtype, device):
             if plan.resampler == "systematic":
                 return full_positions(t, j) * (plan.N / float(n))
             return full_positions(t, j)[:, :n]
+        if full_backward is not None:
+            def backward(t):
+                return full_backward(t)[:, :n]
+    elif plan.fault == "one_backward":
+        all_backward = backward
+
+        def backward(t):
+            return all_backward(t)[..., :1]
     mean, var = model.prior_moments(p)
-    x0 = model.init([z0.to(dtype)], mean, var)
+    x0 = model.init([z.to(dtype) for z in z0], mean, var)
+    if plan.pf == "paris":
+        variant = plan.fault if plan.fault in ("reorder",
+                                               "uniform_backward") else None
+        return paris.window_score(model, model.columns(p), x0, windows,
+                                  step_w, positions, normals, backward,
+                                  dtype, variant)
     fused = plan.route == "k1"
     if plan.fault == "reorder" and plan.islands == 1:
         fused = not fused

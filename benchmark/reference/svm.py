@@ -8,8 +8,9 @@ leading chain axis: ``A [C, 1, 1]``, ``LQinv_vec [C, 1]`` = Q^-1/2 and
 section 5.2).  The bootstrap particle kernel, the Fisher-identity
 statistic of the three leaves, the Wishart / matrix-normal prior's score
 (the matrix-normal prior on A contributes no gradient to LQinv), the
-projection ``|A| <= 0.9999`` with reflected Cholesky factors, and the
-initial-state prior N(0, Q / (1 - A^2)) capped at 1e3.
+projection ``|A| <= 0.9999`` with reflected Cholesky factors, the
+initial-state prior N(0, Q / (1 - A^2)) capped at 1e3, and the transition
+density of PaRIS's backward weights.
 """
 from __future__ import annotations
 
@@ -60,6 +61,14 @@ def reweight(pv, x, x_new, y):
     e = torch.exp(torch.clamp(-xn, -60.0, 60.0))
     return (-0.5 * LOG_2PI - 0.5 * (y * y) * e * (lrinv * lrinv)
             + torch.log(torch.abs(lrinv)) - 0.5 * xn)
+
+
+def transition_log_density(pv, x, x_new):
+    """log N(x'; A x, Q), PaRIS's backward kernel."""
+    a, lqinv, _ = pv
+    diff = x_new[0] - a * x[0]
+    return (-0.5 * diff * diff * (lqinv * lqinv) - 0.5 * LOG_2PI
+            + torch.log(torch.abs(lqinv)))
 
 
 def statistic(pv, x, x_new, y):

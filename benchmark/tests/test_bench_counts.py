@@ -1,8 +1,9 @@
 """The frozen counts against hand sums at small shapes."""
 import pytest
 
-from benchmark.counts import (garch_optimal_body, k1, k1_frame, peaks,
-                              resample_apply, step, svm_body)
+from benchmark.counts import (garch_optimal_body, k1, k1_frame, paris,
+                              peaks, resample_apply, smoother_step, step,
+                              svm_body)
 
 
 def test_frozen_constants():
@@ -50,3 +51,22 @@ def test_step_count():
     assert step.ops_per_particle_step(35) == 123
     assert step.ops_per_particle_step(61) == 149
     assert step.ops(5, 6, 7, 35) == 5 * 6 * 7 * 123
+
+
+def test_smoother_step_bytes_by_hand():
+    # C=1, N=2, D=1, Z=1, H=3: a particle reads its row of 4 and writes it,
+    # reads a normal, writes a log-weight and a CDF entry
+    assert smoother_step.nbytes(1, 2, 1, 1, 3) == 4 * 2 * (2 * 4 + 1 + 2)
+    # the GARCH optimal launch at C=8192, N=1000: 0.49 GB, 0.1467 ms
+    assert smoother_step.nbytes(8192, 1000, 2, 1, 4) == 491_520_000
+    assert smoother_step.bound_s(8192, 1000, 2, 1, 4, 61) * 1e3 == \
+        pytest.approx(0.1467, abs=1e-4)
+
+
+def test_paris_count_by_hand():
+    # the SVM at N=100, n_tilde=2: forward 25 + 35 - 18 + 63; 100 pairs of
+    # 7 + 7; two draws of a search (7 + 1), a statistic (18) and 2 x 3;
+    # the mean 3
+    per = (25 + 35 - 18 + 63) + 100 * (7 + 7) + 2 * (8 + 18 + 6) + 3
+    assert paris.ops_per_particle_step(svm_body, 100, 1, 2, 3) == per
+    assert paris.ops(5, 6, 100, svm_body, 1, 2, 3) == 5 * 6 * 100 * per

@@ -15,9 +15,11 @@ import torch
 from benchmark.harness import check, main, spec
 from benchmark.tests.small import cpu_route, small_cell
 from sgmcmc_tpu_torch.inference import sgmcmc
+from sgmcmc_tpu_torch.ops import smoothers
 from sgmcmc_tpu_torch.parallel import training
 
-ONE_CARD = ["svm_k1", "garch_unfused", "garch_k1"]
+ONE_CARD = ["svm_k1", "garch_unfused", "garch_k1", "svm_unfused",
+            "svm_paris100"]
 
 
 def _run(cell, traced=False, seed=2 ** 31 + 77):
@@ -95,10 +97,11 @@ def _half_batch(monkeypatch):
         return fused(model, params, window, step_w, z0[..., :n],
                      None if normals is None else normals[..., :n], *rest)
 
-    def unfused_half(*a, z0, normals, u, **kw):
+    def unfused_half(*a, z0, normals, u, v=None, **kw):
         n = z0.shape[-1] // 2
         return unfused(*a, z0=z0[..., :n], normals=normals[..., :n],
-                       u=u[..., :n] if u.dim() == 3 else u, **kw)
+                       u=u[..., :n] if u.dim() == 3 else u,
+                       v=None if v is None else v[:, :, :n], **kw)
     monkeypatch.setattr(sgmcmc, "fused_pf_score", fused_half)
     monkeypatch.setattr(sgmcmc, "run_buffered_pf", unfused_half)
 
@@ -141,6 +144,35 @@ def _fields(params):
                                    _half_chains])
 def test_fault_in_the_timed_path_is_not_correct(name, fault, monkeypatch):
     cell = small_cell(name)
+    fault(monkeypatch)
+    _, _, correct, checks, _ = _run(cell)
+    assert not correct, {k: v["value"] for k, v in checks.items()}
+
+
+def _one_backward(monkeypatch):
+    """PaRIS takes one backward draw a particle (the first, repeated) in
+    place of n_tilde."""
+    real = smoothers._backward_indices
+
+    def one(*a, **kw):
+        J = real(*a, **kw)
+        return J[..., :1].expand_as(J)
+    monkeypatch.setattr(smoothers, "_backward_indices", one)
+
+
+def _uniform_backward(monkeypatch):
+    """PaRIS's backward indices drawn uniformly, ignoring the backward
+    weights."""
+    def uniform(kernel, params, particles, log_weights, new_particles, v,
+                bw_chunk):
+        n = log_weights.shape[-1]
+        return (v * n).long().clamp(max=n - 1)
+    monkeypatch.setattr(smoothers, "_backward_indices", uniform)
+
+
+@pytest.mark.parametrize("fault", [_one_backward, _uniform_backward])
+def test_paris_fault_in_the_timed_path_is_not_correct(fault, monkeypatch):
+    cell = small_cell("svm_paris100")
     fault(monkeypatch)
     _, _, correct, checks, _ = _run(cell)
     assert not correct, {k: v["value"] for k, v in checks.items()}

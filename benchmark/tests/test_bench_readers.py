@@ -99,3 +99,25 @@ def test_unfused_and_collective_readers():
     run.traces = [spun, t]
     assert spec.metric_reader("collective_ms_per_iter")(run) == \
         pytest.approx(0.03 / 10)
+
+
+def test_step_kernel_reader_and_the_paris_count():
+    s1 = "void sgmcmc_step::smoother_step_kernel<SvmBody, float>(...)"
+    ra = "void resample_apply_kernel<true>(...)"
+    t = _trace([(ra, 2.0), (s1, 3.0)] * 600, calls=1, window=4000.0)
+    run = _run([(0.0, 1.0)], traces=[t])
+    run.cell = spec.load_cell("svm_unfused")
+    from benchmark.counts import paris, peaks, smoother_step, svm_body
+    bound = smoother_step.bound_s(8192, 1000, 1, 1, 3, 35)
+    assert spec.metric_reader("smoother_step_roofline")(run) == \
+        pytest.approx(100.0 * bound / 3e-6)
+    # the step kernel is not resample-apply: the smoother's own time
+    assert spec.metric_reader("smoother_ms_per_wstep")(run) == \
+        pytest.approx(1800.0 / 1e3 / 600)
+    # PaRIS's cell counts its backward step; no step kernel there
+    run.cell = spec.load_cell("svm_paris100")
+    ops = paris.ops(8192 * 10, 60, 100, svm_body, 1, 2, 3)
+    assert spec.metric_reader("step_mfu")(run) == pytest.approx(
+        100.0 * ops / (4000e-6 * peaks.F32_OPS_S))
+    run.traces = [_trace([(ra, 2.0)] * 600)]
+    assert spec.metric_reader("smoother_step_roofline")(run) is None
