@@ -347,28 +347,14 @@ STATISTIC_DIM = 5
 def grad_statistic(params: SVJMParams, x_t, x_next, y_next, t):
     """Per-particle gradient of log Pr(y', x' | x, theta), [C, N, 5]: the
     transition score is the responsibility-weighted mixture of the two
-    branch scores."""
-    x0 = x_t[..., 0]
-    x1 = x_next[..., 0]
-    d = x1 - _col(params.a) * x0
-    Q, QJ = _col(params.Q), _col(params.QJ)
-    v0 = Q
-    v1 = Q + QJ
-    r1 = _jump_responsibility(params, d)
-    r0 = 1.0 - r1
-    lqinv, lqjinv = _col(params.lqinv), _col(params.lqjinv)
-    grad_A = d * x0 * (r0 / v0 + r1 / v1)
-    dlogN0_dv = 0.5 * d * d / (v0 * v0) - 0.5 / v0
-    dlogN1_dv = 0.5 * d * d / (v1 * v1) - 0.5 / v1
-    grad_LQinv = (-2.0 * Q / lqinv) * (r0 * dlogN0_dv + r1 * dlogN1_dv)
-    grad_LQJinv = (-2.0 * QJ / lqjinv) * r1 * dlogN1_dv
-    grad_logit_pJ = r1 - _col(params.pJ)
-    y = y_next[:, 0:1]
-    diff_y2 = (y * y) * torch.exp(torch.clamp(-x1, -60.0, 60.0))
-    lrinv = _col(params.lrinv)
-    grad_LRinv = 1.0 / lrinv - diff_y2 * lrinv
-    return torch.stack([grad_LRinv, grad_LQinv, grad_A, grad_logit_pJ,
-                        grad_LQJinv], -1)
+    branch scores.  Computed by the fused body's expression
+    (``_fused_stat``: the responsibility and pJ as clipped sigmoids), so
+    that the unfused smoother and the fused window give the same
+    statistic bit for bit, as the SVM's and GARCH's do."""
+    pv = [_col(params.a), _col(params.lqinv), _col(params.lrinv),
+          _col(params.lqjinv), params.logit_pJ, None]
+    return torch.stack(_fused_stat(pv, [x_t[..., 0]], [x_next[..., 0]],
+                                   y_next[:, 0:1]), -1)
 
 
 def unpack_grad(stat: torch.Tensor) -> SVJMParams:

@@ -110,7 +110,10 @@ def run_buffered_pf(
     statistics E[h_t | y_{<= t+lag}]: slot t weighted at step t + lag, the
     last ``min(lag, W)`` slots the final smoothed value.  ``save_all``
     returns ``(out, saved)`` with every step's carry stacked along a
-    leading step axis ``[W, ...]``."""
+    leading step axis ``[W, ...]``.
+
+    Each window step that takes the PyTorch step, not the step kernel,
+    counts one in ``run_buffered_pf.pytorch_steps``."""
     C, W = observations.shape[:2]
     dtype, dev = observations.dtype, observations.device
     if step_weights is None:
@@ -159,6 +162,7 @@ def run_buffered_pf(
                     torch.zeros((C,), dtype=dtype, device=dev))
     saved = []
     for t in range(W):
+        run_buffered_pf.pytorch_steps += 1
         with span("sgmcmc.smoother.step"):
             new = step(params, carry, PFStepInput(
                 z=normals[:, t].transpose(1, 2), u=u[:, t],
@@ -198,6 +202,11 @@ def run_buffered_pf(
     if save_all:
         return out, PFCarry(*[torch.stack(x) for x in zip(*saved)])
     return out
+
+
+# window steps run by the PyTorch step of ops/smoothers.py (every route but
+# the step kernel's)
+run_buffered_pf.pytorch_steps = 0
 
 
 def _initial_particles(kernel: ParticleKernel, params, z0, prior_mean,

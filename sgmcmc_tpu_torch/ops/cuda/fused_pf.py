@@ -28,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import types
 from typing import Callable
 
 import torch
@@ -39,6 +40,20 @@ from .resample import ancestors, cdf_parts
 # model bodies with an entry point in the library (FusedModel.body)
 _BODIES = ("svm", "lgssm_optimal", "lgssm_prior", "garch_optimal",
            "garch_prior", "svjm")
+
+
+def launch_key(body: str, in_kernel_normals: bool) -> str:
+    """The attribute of :data:`fused_window_by_body` that counts the fused
+    window's launches on ``body`` with normals drawn in the kernel
+    (``<body>_kernel``) or streamed in from the host (``<body>_host``)."""
+    return f"{body}_{'kernel' if in_kernel_normals else 'host'}"
+
+
+# the fused window's launches by body and normals source
+# (``fused_window_by_body.svjm_kernel``), beside their total in
+# ``fused_window.launches``
+fused_window_by_body = types.SimpleNamespace(
+    **{launch_key(b, k): 0 for b in _BODIES for k in (True, False)})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,7 +169,8 @@ def fused_window(model: FusedModel, pvec: torch.Tensor, x0: torch.Tensor,
     the ESS gate, ``vs [C, W]`` the valid gate (step t of chain c runs
     only where ``vs[c, t] > 0``).  CUDA tensors launch the kernel on the
     current stream (no synchronisation) and count one in
-    ``fused_window.launches``; CPU tensors run
+    ``fused_window.launches`` and in its body's and normals source's
+    attribute of ``fused_window_by_body``; CPU tensors run
     :func:`fused_window_reference`.
     """
     _check_inputs(model, pvec, x0, normals, seeds, ys, weights, xi, vs)
@@ -186,8 +202,15 @@ def fused_window(model: FusedModel, pvec: torch.Tensor, x0: torch.Tensor,
                    None if vs is None else vs.data_ptr(),
                    out.data_ptr(), C, W, N, float(lambduh), thr, stream)
     check_launch(rc, "fused window")
-    fused_window.launches += 1
+    _count_launch(model.body, seeds is not None)
     return out
+
+
+def _count_launch(body: str, in_kernel_normals: bool) -> None:
+    """One launch of the fused window on ``body``, in both counters."""
+    fused_window.launches += 1
+    key = launch_key(body, in_kernel_normals)
+    setattr(fused_window_by_body, key, getattr(fused_window_by_body, key) + 1)
 
 
 fused_window.launches = 0
